@@ -7,17 +7,26 @@
    ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a (build seconds
    and the compiler's register/shared-memory report);
 2. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged shapes, and times the kernel, the plain
+   main paths' shapes and at ragged shapes, and times the kernel, the plain
    version and (where one exists) one library call with CUDA events;
-3. drives the main path: a ``ServeSession`` at Llama-3.1-8B width (all 32
-   layers, fp32 random weights from seed 0) answering 6 greedy requests of
-   1024-2048 prompt tokens and 32 new tokens each over 4 slots, and checks
-   that every request completes, the logits stay finite, and each kernel was
-   launched once per layer per decode step; then serves the same requests
-   at 4 layers with ``async_io`` on and off and requires bit-identical
-   tokens;
-4. prints the ``{"kernels": [...]}`` line, then, last, the ``{"ok": true, ...}``
-   line.
+3. drives the first main path: a ``ServeSession`` at Llama-3.1-8B width (all
+   32 layers, fp32 random weights from seed 0) answering 6 greedy requests
+   of 1024-2048 prompt tokens and 32 new tokens each over 4 slots, and
+   checks that every request completes, the logits stay finite, and kernels
+   A and B were launched once per layer per decode step; then serves the
+   same requests at 4 layers with ``async_io`` on and off and requires
+   bit-identical tokens;
+4. drives the second main path: Zamba2-1.2B at full width (all 38 blocks:
+   32 Mamba2, 6 shared attention; fp32 random weights from seed 0) through
+   ``KVSwapEngine.generate`` for 4 prompts of 2048 tokens and 32 new tokens,
+   and checks the tokens' shape, finite logits, that only the 6 attention
+   layers own disk KV, that kernel C ran once per Mamba2 layer in the one
+   prefill and kernels A and B once per attention layer per decode step;
+   then generates at 12 blocks with ``async_io`` and ``device_resident``
+   each on and off and requires bit-identical tokens;
+5. prints the ``{"kernels": [...]}`` line (``launches``: the kernel's launches
+   summed over the two main paths, each counted from 0 just before its run),
+   then, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase exits nonzero without the last line.  Imports no JAX and
 nothing of the JAX package ``repro``.  Needs one CUDA card.
@@ -41,6 +50,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (published)
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores (published)
 SCORE_RTOL = 1e-5              # kernel A: |err| <= 1e-5 x the row's score scale
 ATTN_TOL = 1e-5                # kernel B: |err| <= 1e-5 x max(1, |output|max)
+# kernel C sums up to Q = 128 decayed products in another order than its
+# plain version, with expf for torch.exp: |err| <= 1e-4 x max(1, |y|max)
+SSD_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -120,9 +132,42 @@ def check_attention(ops, dev, gen, b, h, hk, d, s, mask) -> float:
     return err
 
 
+def ssd_inputs(gen, dev, b, nc, q, h, p, n, steep=False, pad=0):
+    """Kernel C's inputs as ``mamba2_forward`` makes them: ``cum`` is the
+    in-chunk cumsum of a non-positive log-decay; ``steep`` lets it fall by up
+    to 45 a token (the exponent above the diagonal then passes +5000);
+    ``pad`` zeroes the last chunk's last ``pad`` tokens, as padding arrives."""
+    xh = torch.randn((b, nc, q, h, p), generator=gen, device=dev)
+    bm = torch.randn((b, nc, q, n), generator=gen, device=dev)
+    cm = torch.randn((b, nc, q, n), generator=gen, device=dev)
+    dt = torch.rand((b, nc, q, h), generator=gen, device=dev)
+    rate = (torch.linspace(1.0, 45.0, h, device=dev) if steep
+            else torch.rand(h, generator=gen, device=dev))
+    ld = -dt * rate
+    if pad:
+        for t in (xh, bm, cm, dt, ld):
+            t[:, -1, q - pad:] = 0
+    return xh, bm, cm, dt, torch.cumsum(ld, dim=2)
+
+
+def check_ssd(ops, dev, gen, shape: dict) -> float:
+    args = ssd_inputs(gen, dev, **shape)
+    got = ops.ssd_chunk(*args)
+    want = ops.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"kernel C {shape}: non-finite output")
+    if shape.get("pad"):
+        check(not bool(got[:, -1, shape["q"] - shape["pad"]:].any()),
+              f"kernel C {shape}: padded tokens are not 0")
+    err = float((got - want).abs().max())
+    check(err <= SSD_TOL * max(1.0, float(want.abs().max())),
+          f"kernel C {shape}: max abs err {err:.3g} > {SSD_TOL} of max(1, |y|max)")
+    return err
+
+
 def kernel_checks(ops, select_groups, dev) -> list[dict]:
-    """Both kernels against their plain versions (main-path and ragged
-    shapes), then timed at the main path's shapes."""
+    """The three kernels against their plain versions (main-path and ragged
+    shapes), then timed at the main paths' shapes."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -167,6 +212,24 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
     n_tok = int(mask.sum())
     bound_b, by_b = bound_ms(4 * (2 * b * h * d + 2 * n_tok * hk * d) + b * s,
                              4 * n_tok * h * d)
+
+    # kernel C: Zamba2 prefill B=4, S=2048 in 16 chunks of Q=128, H=64, P=64, N=64
+    path = dict(b=4, nc=16, q=128, h=64, p=64, n=64)
+    err_c = check_ssd(ops, dev, gen, path)
+    for shape in [dict(b=2, nc=1, q=128, h=64, p=64, n=64),          # one chunk
+                  dict(b=1, nc=2, q=16, h=2, p=8, n=4),
+                  dict(b=2, nc=3, q=64, h=4, p=16, n=16),
+                  dict(b=1, nc=2, q=128, h=64, p=64, n=64, steep=True),
+                  dict(b=2, nc=2, q=128, h=8, p=64, n=64, pad=37),
+                  dict(b=1, nc=1, q=64, h=4, p=16, n=16, steep=True, pad=11)]:
+        err_c = max(err_c, check_ssd(ops, dev, gen, shape))
+    args = ssd_inputs(gen, dev, **path)
+    ms_c = device_ms(lambda: ops.ssd_chunk(*args), flush)
+    plain_c = device_ms(lambda: ops.ssd_chunk_plain(*args), flush)
+    bc, q, h, p, n = path["b"] * path["nc"], path["q"], path["h"], path["p"], path["n"]
+    tri = q * (q + 1) // 2                    # (i, j) pairs on and below the diagonal
+    bound_c, by_c = bound_ms(4 * sum(a.numel() for a in args) + 4 * bc * q * h * p,
+                             bc * tri * (2 * n + 3 * h + 2 * h * p))
     return [
         {"name": "lowrank_group_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lowrank_score.cu",
@@ -178,7 +241,70 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
          "replaces": "src/repro/kernels/gather_attention.py:28",
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": lib_b},
+        {"name": "ssd_chunk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk.py:25",
+         "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c,
+         "bound_ms": bound_c, "bound_by": by_c, "library_ms": None},
     ]
+
+
+def hybrid_phases(run_hybrid_path, cfg, ecfg, dev, kernels, card) -> dict:
+    """The second main path (Zamba2-1.2B through ``generate``) and its
+    12-block bit-identity checks; returns the main run's launches."""
+    n_mamba, n_kv = cfg.blocks.count("mamba2"), cfg.blocks.count("shared_attn")
+    t0 = time.perf_counter()
+    run = run_hybrid_path(cfg, device=dev, engine_cfg=ecfg, batch=4, prompt_len=2048,
+                          max_new=32, seed=0)
+    check(run["n_layers"] == 38 and (n_mamba, n_kv) == (32, 6),
+          f"hybrid path ran {run['n_layers']} blocks ({n_mamba} Mamba2, {n_kv} attention)")
+    check(run["tokens"].shape == (4, 32), f"hybrid tokens {run['tokens'].shape} != (4, 32)")
+    check(run["logits_finite"], "non-finite logits on the hybrid path")
+    check(run["n_store_layers"] == n_kv, f"engine.store.n_layers {run['n_store_layers']} != {n_kv}")
+    check(run["n_states"] == n_mamba, f"{run['n_states']} recurrent states, expected {n_mamba}")
+    steps = run["decode_steps"]
+    launches = run["launches"]
+    check(launches["ssd_chunk"] == n_mamba,
+          f"ssd_chunk launched {launches['ssd_chunk']} times, expected {n_mamba} (one prefill)")
+    for name in ("lowrank_group_scores", "gather_attention"):
+        check(launches[name] == steps * n_kv,
+              f"{name} launched {launches[name]} times, expected {steps} steps x {n_kv}")
+    walls = run["decode_step_wall_seconds"]
+    med = statistics.median(walls) * 1e3
+    print(f"hybrid path: zamba2-1.2b, 38 blocks ({n_mamba} Mamba2, {n_kv} shared attention), "
+          f"batch 4 x 2048 prompt tokens, {steps} decode steps, launches {launches}, "
+          f"total {time.perf_counter() - t0:.1f} s  [{card}]")
+    print(f"hybrid path: prefill wall {run['prefill_seconds'] * 1e3:.1f} ms; decode step wall "
+          f"median {med:.1f} ms, mean {statistics.fmean(walls) * 1e3:.1f} ms over {steps} "
+          f"steps; {run['tokens_per_s']:.1f} tokens/s over generate ({run['wall_seconds']:.2f} s, "
+          f"prefill included); peak device memory {run['peak_memory_bytes'] / 2**30:.2f} GiB"
+          f"  [{card}]", flush=True)
+    # decode step: blocked on group reads, kernels A and B (launches per
+    # step x timed ms; kernel C runs only in the prefill), and the rest
+    wait_ms = statistics.median(run["decode_step_io_wait_seconds"]) * 1e3
+    kern_ms = sum(kr["ms"] * launches[kr["name"]] for kr in kernels
+                  if kr["name"] != "ssd_chunk") / steps
+    ssd_ms = next(kr["ms"] for kr in kernels if kr["name"] == "ssd_chunk") * launches["ssd_chunk"]
+    print(f"hybrid path: decode step median {med:.1f} ms = wait on group reads {wait_ms:.1f} ms"
+          f" + kernels A, B {kern_ms:.2f} ms + rest {med - wait_ms - kern_ms:.1f} ms; prefill "
+          f"{run['prefill_seconds'] * 1e3:.1f} ms holds kernel C {ssd_ms:.2f} ms  [{card}]",
+          flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    toks = {}
+    for aio, dr in ((False, False), (True, False), (False, True), (True, True)):
+        r = run_hybrid_path(cfg, device=dev, n_layers=12, batch=4, prompt_len=2048, max_new=16,
+                            engine_cfg=dataclasses.replace(ecfg, async_io=aio, device_resident=dr))
+        check(r["launches"]["ssd_chunk"] == 10 and r["n_store_layers"] == 2,
+              f"12-block run: {r['launches']}, {r['n_store_layers']} KV layers on disk")
+        toks[aio, dr] = r["tokens"]
+    ref = toks[False, False]
+    check(all(t.shape == (4, 16) and (t == ref).all() for t in toks.values()),
+          "12-block hybrid tokens differ across async_io / device_resident")
+    print("12 blocks: hybrid tokens bit-identical with async_io and device_resident "
+          "on and off", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -186,11 +312,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.configs import llama3_8b
+        from repro_torch.configs import llama3_8b, zamba2_1p2b
         from repro_torch.core.engine import EngineConfig
         from repro_torch.core.predictor import select_groups
         from repro_torch.kernels import _build, ops
-        from repro_torch.main_path import run_main_path
+        from repro_torch.main_path import run_hybrid_path, run_main_path
     except ImportError as exc:
         fail(f"the port is not next to this script ({exc})")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -244,7 +370,8 @@ def main() -> None:
     # by the engine), the two kernels (launches per step x their timed ms),
     # and the rest (host work and the other device operations)
     wait_ms = statistics.median(main_run["decode_step_io_wait_seconds"]) * 1e3
-    kern_ms = sum(kr["ms"] * launches[kr["name"]] for kr in kernels) / main_run["decode_steps"]
+    kern_ms = sum(kr["ms"] * launches[kr["name"]] for kr in kernels
+                  if kr["name"] in launches) / main_run["decode_steps"]
     print(f"main path: decode step median {statistics.median(steps) * 1e3:.1f} ms = "
           f"wait on group reads {wait_ms:.1f} ms + kernels {kern_ms:.2f} ms + rest "
           f"{statistics.median(steps) * 1e3 - wait_ms - kern_ms:.1f} ms  [{card}]", flush=True)
@@ -262,8 +389,14 @@ def main() -> None:
           "4-layer tokens differ between async_io on and off")
     print("4 layers: tokens bit-identical with async_io on and off", flush=True)
 
+    del runs
+    torch.cuda.empty_cache()
+
+    hybrid_launches = hybrid_phases(run_hybrid_path, zamba2_1p2b.config(), ecfg, dev,
+                                    kernels, card)
+
     for kr in kernels:
-        kr["launches"] = launches[kr["name"]]
+        kr["launches"] = launches.get(kr["name"], 0) + hybrid_launches[kr["name"]]
     print(json.dumps({"kernels": [{key: kr[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for kr in kernels]}))

@@ -1,6 +1,9 @@
 """KVSwap engine in PyTorch: prefill → disk, overlap-pipelined sparse decode (§3.4).
 
-The port of :mod:`repro.core.engine` for dense attention models.  Host-side
+The port of :mod:`repro.core.engine` for dense attention models and for
+hybrids whose recurrent-state layers (Mamba2) sit between attention
+layers (Zamba2): only the attention ("kv") layers own disk-backed KV, the
+state layers carry their state in :attr:`KVSwapEngine.states`.  Host-side
 orchestration (disk store, reuse and rolling buffers, mapping tables, the
 prefetch worker, the modeled I/O and compute clocks) is the reference's,
 copied; the device side is PyTorch on the run's device, with the decode
@@ -256,8 +259,6 @@ class KVSwapEngine:
             raise _later_slice("fault injection (faults=)")
         if cfg.warm_budget_bytes > 0:
             raise _later_slice("the warm tier (warm_budget_bytes > 0)")
-        if any(k != "kv" for k in getattr(model, "layer_kinds", ("kv",) * model.n_layers)):
-            raise _later_slice("recurrent state layers")
         self.device = resolve(device)
         self.model = model
         self.params = params
@@ -279,8 +280,12 @@ class KVSwapEngine:
         g = cfg.group_size
         self.max_groups = (cfg.max_seq + g - 1) // g
         self.cap_tokens = self.max_groups * g
-        n_layers = model.n_layers
-        self.kv_layers = list(range(n_layers))
+        # hybrid support: only "kv" layers own disk-backed KV state; j below
+        # indexes the KV layers, `layer` the model's blocks
+        self.layer_kinds = tuple(getattr(model, "layer_kinds", ("kv",) * model.n_layers))
+        self.kv_layers = [i for i, k in enumerate(self.layer_kinds) if k == "kv"]
+        self._kv_index = {layer: j for j, layer in enumerate(self.kv_layers)}
+        n_kv_layers = len(self.kv_layers)
         self.accountant = IOAccountant(cfg.disk_spec)
         if self.obs.enabled:
             # mirror every I/O charge into the registry inside the
@@ -307,7 +312,7 @@ class KVSwapEngine:
         # default), as the reference does, so StepStats compare one to one
         self.compute_spec = hardware.COMPUTES.get(cfg.compute, hardware.TPU_V5E)
         self.store = KVDiskStore(
-            n_layers=n_layers, batch=batch, max_groups=self.max_groups,
+            n_layers=n_kv_layers, batch=batch, max_groups=self.max_groups,
             group_size=g, n_kv_heads=model.n_kv_heads, head_dim=model.head_dim,
             dtype=cfg.np_dtype, accountant=self.accountant,
             quant_bits=8 if cfg.kv_bits == 8 else 0,
@@ -316,12 +321,12 @@ class KVSwapEngine:
             ReuseBuffer(batch=batch, capacity=cfg.reuse_capacity, group_size=g,
                         n_kv_heads=model.n_kv_heads, head_dim=model.head_dim,
                         dtype=cfg.np_dtype)
-            for _ in range(n_layers)
+            for _ in range(n_kv_layers)
         ]
         self.rolling = [
             RollingBuffer(batch=batch, group_size=g, n_kv_heads=model.n_kv_heads,
                           head_dim=model.head_dim, dtype=cfg.np_dtype)
-            for _ in range(n_layers)
+            for _ in range(n_kv_layers)
         ]
         self.scheduler = ReadScheduler(max_gap=cfg.coalesce_gap)
         self._retry = RetryPolicy(max_attempts=cfg.io_max_attempts,
@@ -330,22 +335,24 @@ class KVSwapEngine:
             KVCacheManager(store=self.store, reuse=self.reuse[j], rolling=self.rolling[j],
                            layer=j, scheduler=self.scheduler, obs=self.obs,
                            retry=self._retry)
-            for j in range(n_layers)
+            for j in range(n_kv_layers)
         ]
         self.prefetcher: PrefetchWorker | None = None
         if cfg.async_io:
             self.prefetcher = PrefetchWorker(
                 self._fetch_table, n_threads=cfg.io_threads,
-                max_pending=max(4, 2 * n_layers),
+                max_pending=max(4, 2 * max(n_kv_layers, 1)),
                 accountant=self.accountant,
                 obs=self.obs,
             )
         self.quality = PrefetchQualityMeter()
-        # preallocated compressed K cache, one per layer: [B, cap_tokens, r]
+        # recurrent state of the non-KV (Mamba2) layers, keyed by model layer
+        self.states: dict[int, dict] = {}
+        # preallocated compressed K cache, one per KV layer: [B, cap_tokens, r]
         self.k_lr = [
             torch.zeros((batch, self.cap_tokens, cfg.rank), dtype=torch.float32,
                         device=self.device)
-            for _ in range(n_layers)
+            for _ in range(n_kv_layers)
         ]
         self.row_active = np.zeros(batch, dtype=bool)
         self.row_seq = np.zeros(batch, dtype=np.int64)    # tokens seen (incl. tail)
@@ -366,8 +373,8 @@ class KVSwapEngine:
                                     and hasattr(model, "gather_context"))
         # device rolling tail per layer: [B, G, H_kv, d] fp32, written in
         # place by decode; per-row validity comes from RollingBuffer.fills
-        self._tail_k: list[torch.Tensor | None] = [None] * n_layers
-        self._tail_v: list[torch.Tensor | None] = [None] * n_layers
+        self._tail_k: list[torch.Tensor | None] = [None] * n_kv_layers
+        self._tail_v: list[torch.Tensor | None] = [None] * n_kv_layers
         self._dev_ready = False
         self._h2d_step = 0
         self._step_active = np.zeros(batch, dtype=bool)
@@ -390,6 +397,29 @@ class KVSwapEngine:
     def _host(self, t: torch.Tensor) -> np.ndarray:
         """Download a device tensor as the engine's storage dtype."""
         return t.to(self._dtype).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def metadata_bytes(self) -> dict:
+        """In-memory footprint of KVSwap state (the paper's Fig. 3a metric).
+        ``k_lr_logical`` counts the valid compressed keys of every row in
+        every KV layer (a hybrid's state layers own none)."""
+        klr = int(self.row_valid.sum()) * self.cfg.rank * 4
+        klr_alloc = sum(k.numel() * 4 for k in self.k_lr)
+        reuse = sum(r.nbytes for r in self.reuse)
+        rolling = sum(r.nbytes for r in self.rolling)
+        out = {
+            "k_lr_logical": klr * len(self.kv_layers),
+            "k_lr_alloc": klr_alloc,
+            "reuse_buffer": reuse,
+            "rolling_buffer": rolling,
+            "total": klr_alloc + reuse + rolling,
+        }
+        if any(r.device is not None for r in self.reuse):
+            # the device mirrors double C's footprint; reported apart, as
+            # they bound device memory
+            out["device_mirror"] = sum(r.device.nbytes for r in self.reuse
+                                       if r.device is not None)
+        return out
 
     # ------------------------------------------------------------------
     def _modeled_prefill_compute(self, n_new: int, n_ctx0: int,
@@ -453,8 +483,13 @@ class KVSwapEngine:
         positions = torch.arange(s, device=self.device)[None, :].repeat(b, 1)
         x = self.model.embed(self.params, torch.as_tensor(tokens_np, device=self.device))
         with self.accountant.track() as tr:
-            for j in range(self.model.n_layers):
-                x, k, v = self.model.prefill_block(self.params, j, x, positions)
+            for layer in range(self.model.n_layers):
+                if self.layer_kinds[layer] == "state":
+                    x, self.states[layer] = self.model.prefill_state_block(
+                        self.params, layer, x, positions)
+                    continue
+                j = self._kv_index[layer]
+                x, k, v = self.model.prefill_block(self.params, layer, x, positions)
                 k_np, v_np = self._host(k), self._host(v)
                 self.store.write_prefill(j, k_np, v_np)
                 if s - ng * g:
@@ -488,6 +523,9 @@ class KVSwapEngine:
             raise _later_slice("warm admission through the prefix cache (admit_row(cache=...))")
         if self.row_active[bi]:
             raise RuntimeError(f"slot {bi} is busy; retire it first")
+        if any(kind != "kv" for kind in self.layer_kinds):
+            raise ValueError("admit_row requires attention-only models "
+                             "(recurrent state has no per-row lifecycle)")
         tokens_np = np.asarray(tokens).reshape(-1).astype(np.int64)
         s = int(tokens_np.shape[0])
         if s < 1:
@@ -503,8 +541,9 @@ class KVSwapEngine:
                 positions = torch.arange(s, device=self.device)[None, :]
                 x = self.model.embed(self.params,
                                      torch.as_tensor(tokens_np[None], device=self.device))
-                for j in range(self.model.n_layers):
-                    x, k, v = self.model.prefill_block(self.params, j, x, positions)
+                for layer in range(self.model.n_layers):
+                    j = self._kv_index[layer]
+                    x, k, v = self.model.prefill_block(self.params, layer, x, positions)
                     k_np, v_np = self._host(k[0]), self._host(v[0])
                     self.store.write_prefill_row(j, bi, k_np, v_np)
                     if s - ng * g:
@@ -670,7 +709,7 @@ class KVSwapEngine:
         """Drop the device mirrors and tails (on re-prefill); the first
         decode step after rebuilds them from the fresh host state."""
         self._dev_ready = False
-        for j in self.kv_layers:
+        for j in range(len(self.kv_layers)):
             self.reuse[j].device = None
             self._tail_k[j] = None
             self._tail_v[j] = None
@@ -681,7 +720,7 @@ class KVSwapEngine:
         prefill seeded."""
         if self._dev_ready:
             return
-        for j in self.kv_layers:
+        for j in range(len(self.kv_layers)):
             self.reuse[j].attach_device_mirror(self.device)
             # torch.tensor copies: the tail must never alias the host buffer
             self._tail_k[j] = torch.tensor(self.rolling[j].k, dtype=torch.float32,
@@ -691,48 +730,60 @@ class KVSwapEngine:
         self._dev_ready = True
 
     # -- per-layer pieces shared by both modes --------------------------
-    def _predict_for(self, j: int, pred_src: torch.Tensor, pos: torch.Tensor,
+    def _predict_for(self, layer: int, j: int, pred_src: torch.Tensor, pos: torch.Tensor,
                      valid: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
-        """Score + select layer ``j``'s critical groups from ``pred_src``;
+        """Score + select model layer ``layer``'s (KV layer ``j``'s) critical
+        groups from ``pred_src``;
         the device ``(ids, mask)`` pair comes to the host in one transfer.
         Inactive rows are masked out on the host (they fetch nothing)."""
         obs = self.obs
         if obs.enabled:
             p0 = obs.tracer.now_wall()
-        q_pred = self.model.predict_query(self.params, j, pred_src, pos)
+        q_pred = self.model.predict_query(self.params, layer, pred_src, pos)
         ids, mask = self._predict(j, q_pred, valid)
         pair = torch.cat([ids, mask.to(ids.dtype)], dim=1).cpu().numpy()
         m = ids.shape[1]
         ids, mask = pair[:, :m], pair[:, m:].astype(bool)
         masked = mask & self._step_active[:, None]
-        self.quality.observe(j, ids, masked, self.reuse[j])
+        self.quality.observe(layer, ids, masked, self.reuse[j])
         if obs.enabled:
-            obs.tracer.add(f"predict L{j}", f"layer{j}", cat="predict",
+            obs.tracer.add(f"predict L{layer}", f"layer{layer}", cat="predict",
                            wall_t0=p0, wall_dur=obs.tracer.now_wall() - p0)
         return ids, masked
 
-    def _kv_layer(self, j: int, x: torch.Tensor, pos: torch.Tensor, table,
+    def _state_layer(self, layer: int, x: torch.Tensor, pos: torch.Tensor,
+                     t_compute: list[float]) -> torch.Tensor:
+        """One step of state layer ``layer``: no prediction, no fetch; the
+        modeled clock charges a layer with no context."""
+        x, self.states[layer] = self.model.decode_state_block(
+            self.params, layer, x, pos, self.states[layer])
+        t_compute.append(
+            hardware.decode_layer_time(self.compute_spec, self.dims, n_ctx=0,
+                                       batch=int(self._step_active.sum())))
+        return x
+
+    def _kv_layer(self, layer: int, j: int, x: torch.Tensor, pos: torch.Tensor, table,
                   t_compute: list[float], flush_rows: list) -> torch.Tensor:
         obs = self.obs
         if obs.enabled:
             a0 = obs.tracer.now_wall()
         if self.device_resident:
-            x = self._kv_layer_device(j, x, pos, table, t_compute, flush_rows)
+            x = self._kv_layer_device(layer, j, x, pos, table, t_compute, flush_rows)
         else:
-            x = self._kv_layer_host(j, x, pos, table, t_compute, flush_rows)
+            x = self._kv_layer_host(layer, j, x, pos, table, t_compute, flush_rows)
         if obs.enabled:
-            obs.tracer.add(f"attn L{j}", f"layer{j}", cat="attn",
+            obs.tracer.add(f"attn L{layer}", f"layer{layer}", cat="attn",
                            wall_t0=a0, wall_dur=obs.tracer.now_wall() - a0,
                            args={"modeled_compute_s": t_compute[-1]})
         return x
 
-    def _kv_layer_host(self, j: int, x: torch.Tensor, pos: torch.Tensor,
+    def _kv_layer_host(self, layer: int, j: int, x: torch.Tensor, pos: torch.Tensor,
                        table, t_compute: list[float], flush_rows: list) -> torch.Tensor:
         """Host-gather control path: host concat + full upload."""
         k_ctx, v_ctx, tok_mask, _ = self.managers[j].gather(table)
         self._h2d_step += k_ctx.nbytes + v_ctx.nbytes
         x, k_new, v_new = self.model.decode_block(
-            self.params, j, x, pos,
+            self.params, layer, x, pos,
             torch.from_numpy(k_ctx).to(self.device), torch.from_numpy(v_ctx).to(self.device),
             torch.from_numpy(tok_mask).to(self.device))
         completed = self.managers[j].append_token_rows(
@@ -745,7 +796,7 @@ class KVSwapEngine:
         self._charge_layer_compute(k_ctx.shape[1] + 1, t_compute)
         return x
 
-    def _kv_layer_device(self, j: int, x: torch.Tensor, pos: torch.Tensor,
+    def _kv_layer_device(self, layer: int, j: int, x: torch.Tensor, pos: torch.Tensor,
                          table, t_compute: list[float], flush_rows: list) -> torch.Tensor:
         """Device-resident hot path: only fetch misses cross host→device.
 
@@ -782,7 +833,7 @@ class KVSwapEngine:
                 k_ctx.index_put_((idx[0], idx[1]), kv[:, 0])
                 v_ctx.index_put_((idx[0], idx[1]), kv[:, 1])
         x, k_new, v_new = self.model.decode_block(
-            self.params, j, x, pos, k_ctx, v_ctx, tok_mask)
+            self.params, layer, x, pos, k_ctx, v_ctx, tok_mask)
         # each active row's fresh token goes to its own tail position; rows
         # not decoding keep their tail contents
         act = np.flatnonzero(self._step_active)
@@ -815,9 +866,15 @@ class KVSwapEngine:
         """Predict + fetch inline, on the critical path."""
         io_wait = 0.0
         x_prev = x
-        for j in range(self.model.n_layers):
-            pred_src = x if (self.cfg.predict_from == "self" or j == 0) else x_prev
-            ids, mask = self._predict_for(j, pred_src, pos, valid)
+        for layer in range(self.model.n_layers):
+            if self.layer_kinds[layer] == "state":
+                x_prev = x
+                x = self._state_layer(layer, x, pos, t_compute)
+                t_io.append(0.0)
+                continue
+            j = self._kv_index[layer]
+            pred_src = x if (self.cfg.predict_from == "self" or layer == 0) else x_prev
+            ids, mask = self._predict_for(layer, j, pred_src, pos, valid)
             w0 = time.perf_counter()
             with self.accountant.track() as tr:
                 table = self.managers[j].fetch(ids, mask)
@@ -826,20 +883,22 @@ class KVSwapEngine:
             t_io.append(tr.read_seconds + tr.warm_seconds)
             if self.obs.enabled:
                 self.obs.tracer.add(
-                    f"fetch L{j}", f"layer{j}", cat="fetch",
+                    f"fetch L{layer}", f"layer{layer}", cat="fetch",
                     wall_t0=self.obs.tracer.now_wall() - dt, wall_dur=dt,
                     args={"modeled_io_s": tr.read_seconds + tr.warm_seconds,
                           "read_bytes": tr.read_bytes,
                           "warm_bytes": tr.warm_bytes})
             x_prev = x
-            x = self._kv_layer(j, x, pos, table, t_compute, flush_rows)
+            x = self._kv_layer(layer, j, x, pos, table, t_compute, flush_rows)
         return x, io_wait
 
     # -- asynchronous pipeline (§3.3 / §3.4) ----------------------------
     def _layers_async(self, x, pos, valid, t_compute, t_io, flush_rows):
         """Issue layer *i+1*'s fetch as soon as its prediction source exists
         (``predict_from="prev"``: layer *i*'s input, in hand before layer *i*
-        computes), so the host reads overlap the device compute."""
+        computes), so the host reads overlap the device compute.  The map
+        is keyed by source layer: in a hybrid, a KV layer after a state
+        layer is scored from that state layer's input."""
         issue_at: dict[int, list[int]] = {}
         for L in self.kv_layers:
             src = L if (self.cfg.predict_from == "self" or L == 0) else L - 1
@@ -847,10 +906,18 @@ class KVSwapEngine:
         buf = DoubleBuffer(depth=2)
         io_wait = 0.0
         try:
-            for j in range(self.model.n_layers):
-                for L in issue_at.get(j, ()):
-                    ids, mask = self._predict_for(L, x, pos, valid)
-                    buf.stage(L, self.prefetcher.submit(L, ids, mask))
+            for layer in range(self.model.n_layers):
+                # `x` is the input to `layer`: stage every KV layer whose
+                # prediction source this is (the sync path's x_prev)
+                for L in issue_at.get(layer, ()):
+                    jj = self._kv_index[L]
+                    ids, mask = self._predict_for(L, jj, x, pos, valid)
+                    buf.stage(jj, self.prefetcher.submit(jj, ids, mask))
+                if self.layer_kinds[layer] == "state":
+                    x = self._state_layer(layer, x, pos, t_compute)
+                    t_io.append(0.0)
+                    continue
+                j = self._kv_index[layer]
                 w0 = time.perf_counter()
                 res = buf.take(j)
                 dt = time.perf_counter() - w0
@@ -858,10 +925,10 @@ class KVSwapEngine:
                 t_io.append(res.io_seconds)
                 if self.obs.enabled:
                     self.obs.tracer.add(
-                        f"wait L{j}", f"layer{j}", cat="fetch",
+                        f"wait L{layer}", f"layer{layer}", cat="fetch",
                         wall_t0=self.obs.tracer.now_wall() - dt, wall_dur=dt,
                         args={"modeled_io_s": res.io_seconds})
-                x = self._kv_layer(j, x, pos, res.table, t_compute, flush_rows)
+                x = self._kv_layer(layer, j, x, pos, res.table, t_compute, flush_rows)
         except BaseException:
             buf.drain()   # never leave staged futures behind on an error
             raise

@@ -1,4 +1,5 @@
-"""The port's two decode kernels: wrappers, plain versions and launch counts.
+"""The port's three kernels — the two of the decode path and the Mamba2
+prefill's SSD term: wrappers, plain versions and launch counts.
 
 Each wrapper picks by the device of the tensors it is given:
 
@@ -155,3 +156,69 @@ def gather_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 gather_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# kernel C: Mamba2 SSD intra-chunk term (replaces kernels/ssd_chunk.py)
+# --------------------------------------------------------------------------
+
+
+def ssd_chunk_plain(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+                    dt: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
+    """Plain version: the decayed causal weights in full.  The exponent is
+    set to ``-inf`` above the diagonal *before* ``exp``, so an exponent that
+    would overflow there never meets the mask as ``inf * 0``."""
+    xh, bm, cm, dt, cum = (t.float() for t in (xh, bm, cm, dt, cum))
+    q = xh.shape[2]
+    causal = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+    li = cum[:, :, :, None, :]
+    lj = cum[:, :, None, :, :]
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], li - lj, float("-inf")))
+    cb = torch.einsum("bnis,bnjs->bnij", cm, bm)
+    w = cb[..., None] * decay * dt[:, :, None, :, :]
+    return torch.einsum("bnijh,bnjhp->bnihp", w, xh)
+
+
+def _ssd_shapes(xh, bm, cm, dt, cum) -> tuple[int, ...]:
+    """The shapes the SSD term takes, checked on either device."""
+    name = "ssd_chunk"
+    if xh.dim() != 5:
+        raise ValueError(f"{name}: xh must be [B, nc, Q, H, P], got {tuple(xh.shape)}")
+    b, nc, q, h, p = xh.shape
+    n = bm.shape[-1]
+    if (bm.shape != (b, nc, q, n) or cm.shape != bm.shape or dt.shape != (b, nc, q, h)
+            or cum.shape != dt.shape):
+        raise ValueError(f"{name}: shapes xh {tuple(xh.shape)}, bm {tuple(bm.shape)}, "
+                         f"cm {tuple(cm.shape)}, dt {tuple(dt.shape)}, "
+                         f"cum {tuple(cum.shape)} disagree")
+    for arg, t in zip(("xh", "bm", "cm", "dt", "cum"), (xh, bm, cm, dt, cum)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be torch.float32, got {t.dtype}")
+    return b, nc, q, h, p, n
+
+
+def ssd_chunk(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
+              cum: torch.Tensor) -> torch.Tensor:
+    """Intra-chunk SSD: ``xh [B,nc,Q,H,P]``, ``bm/cm [B,nc,Q,N]``, ``dt/cum
+    [B,nc,Q,H]`` (``cum`` the in-chunk cumulative log-decay), all fp32 →
+    ``[B,nc,Q,H,P]`` fp32.  The kernel takes ``Q <= 128``, ``P`` a power of
+    two from 8 to 64 and ``N <= 128``."""
+    b, nc, q, h, p, n = _ssd_shapes(xh, bm, cm, dt, cum)
+    if xh.device.type == "cpu":
+        return ssd_chunk_plain(xh, bm, cm, dt, cum)
+    name = "ssd_chunk"
+    f32 = torch.float32
+    dev = _require_cuda(name, {"xh": xh, "bm": bm, "cm": cm, "dt": dt, "cum": cum},
+                        dict.fromkeys(("xh", "bm", "cm", "dt", "cum"), f32))
+    if not (1 <= q <= 128 and p in (8, 16, 32, 64) and 1 <= n <= 128):
+        raise ValueError(f"{name}: needs 1 <= Q <= 128, P in (8, 16, 32, 64) and "
+                         f"1 <= N <= 128, got Q={q}, P={p}, N={n}")
+    out = torch.empty((b, nc, q, h, p), dtype=f32, device=dev)
+    fn = _fn("ssd_chunk", "ssd_chunk_f32", [_P] * 6 + [_I] * 5 + [_P])
+    _launch(fn, xh.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), cum.data_ptr(),
+            out.data_ptr(), b * nc, q, h, p, n, torch.cuda.current_stream(dev).cuda_stream)
+    ssd_chunk.launches += 1
+    return out
+
+
+ssd_chunk.launches = 0

@@ -1,4 +1,5 @@
-"""The port's main path, end to end: a serving session answering requests.
+"""The port's main paths, end to end: a serving session answering requests,
+and a hybrid model generating through the engine.
 
 :func:`run_main_path` builds a model from a config (random weights from a
 seeded ``torch.Generator``), fits the low-rank adapter from layer 0's K on
@@ -6,8 +7,15 @@ one calibration prompt, and drains a :class:`~repro_torch.serving.ServeSession`
 of greedy requests with seeded prompts through ``KVSwapEngine``.  It
 returns what a caller checks and reports: the outputs, the decode steps,
 each kernel's launches during the drain, per-step wall times and the time
-each step sat waiting on group reads, throughput and peak device memory.  ``chip_smoke.py`` runs it on the card at
-Llama-3.1-8B width; the CPU tests run it at a tiny size.
+each step sat waiting on group reads, throughput and peak device memory.
+``chip_smoke.py`` runs it on the card at Llama-3.1-8B width; the CPU tests
+run it at a tiny size.
+
+:func:`run_hybrid_path` does the same for a hybrid of Mamba2 and shared
+attention blocks (Zamba2), which ``ServeSession`` refuses: a batch of
+seeded prompts through ``KVSwapEngine.generate``, whose prefill runs every
+Mamba2 layer's chunked SSD (kernel C) and whose decode runs kernels A and B
+on the attention layers only.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.engine import EngineConfig
+from repro_torch.core.engine import EngineConfig, KVSwapEngine
 from repro_torch.core.lowrank import fit_adapter
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
@@ -26,6 +34,7 @@ from repro_torch.models.transformer import ModelConfig, TransformerAdapter, init
 from repro_torch.serving import ServeSession
 
 KERNELS = (ops.lowrank_group_scores, ops.gather_attention)
+HYBRID_KERNELS = (ops.lowrank_group_scores, ops.gather_attention, ops.ssd_chunk)
 
 
 def _sync(dev: torch.device) -> None:
@@ -97,6 +106,10 @@ def run_main_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
         n_steps = len(engine.step_log)
         io_wait = [s.io_wait_seconds for s in engine.step_log]
         stats = sess.stats()
+        # the wrapper holds the engine's bound method: drop it, or the engine
+        # (and the model's weights) would wait in a reference cycle for the
+        # garbage collector after the session closes
+        del engine.decode_step
     return {
         "outputs": outputs,
         "prompt_lens": [len(p) for p in prompts],
@@ -111,4 +124,87 @@ def run_main_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
         "session_clock": stats["modeled_seconds"],
+    }
+
+
+def run_hybrid_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
+                    engine_cfg: EngineConfig | None = None, batch: int = 4,
+                    prompt_len: int = 2048, max_new: int = 32, seed: int = 0) -> dict:
+    """Generate ``max_new`` greedy tokens for ``batch`` seeded prompts of
+    ``prompt_len`` tokens through ``KVSwapEngine.generate``.
+
+    ``n_layers`` keeps the first blocks of the pattern (widths stay the
+    config's).  The adapter is fitted from the first KV layer's K on one
+    calibration prompt, after the blocks before that layer.  Every
+    kernel's launch count is set to 0 just before ``generate`` and read
+    just after.
+    """
+    dev = resolve(device)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers, block_pattern=cfg.blocks[:n_layers])
+    ecfg = engine_cfg or EngineConfig()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, generator=gen, device=dev)
+    model = TransformerAdapter(cfg)
+    rng = np.random.default_rng(seed)
+    calib = rng.integers(0, cfg.vocab_size, prompt_len)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+
+    # the adapter: the first KV layer's K on one calibration prompt
+    first_kv = model.layer_kinds.index("kv")
+    tok = torch.as_tensor(calib[None], device=dev)
+    pos = torch.arange(prompt_len, device=dev)[None]
+    x = model.embed(params, tok)
+    for layer in range(first_kv):
+        x, _ = model.prefill_state_block(params, layer, x, pos)
+    _, k0, _ = model.prefill_block(params, first_kv, x, pos)
+    adapter = fit_adapter(k0[0].cpu().numpy(), rank=ecfg.rank, device=dev)
+    del x, k0
+
+    finite = True
+    walls: dict[str, list[float]] = {"prefill": [], "decode": []}
+    with KVSwapEngine(model, params, ecfg, batch=batch, adapter=adapter,
+                      device=dev) as engine:
+        def timed(name, fn):
+            def call(arg):
+                nonlocal finite
+                t0 = time.perf_counter()
+                logits = fn(arg)
+                _sync(dev)
+                walls[name].append(time.perf_counter() - t0)
+                finite = finite and bool(torch.isfinite(logits).all())
+                return logits
+            return call
+
+        engine.prefill = timed("prefill", engine.prefill)
+        engine.decode_step = timed("decode", engine.decode_step)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for kernel in HYBRID_KERNELS:
+            kernel.launches = 0
+        _sync(dev)
+        t_start = time.perf_counter()
+        tokens = engine.generate(prompts, max_new)
+        wall = time.perf_counter() - t_start
+        launches = {k.__name__: k.launches for k in HYBRID_KERNELS}
+        io_wait = [s.io_wait_seconds for s in engine.step_log]
+        n_store_layers = engine.store.n_layers
+        n_states = len(engine.states)
+        del engine.prefill, engine.decode_step   # no reference cycle through the wrappers
+    return {
+        "tokens": tokens,
+        "n_layers": cfg.n_layers,
+        "n_kv_layers": len(cfg.kv_layers),
+        "n_store_layers": n_store_layers,
+        "n_states": n_states,
+        "decode_steps": len(io_wait),
+        "launches": launches,
+        "logits_finite": finite,
+        "wall_seconds": wall,
+        "tokens_per_s": tokens.size / wall,
+        "prefill_seconds": walls["prefill"][0],
+        "decode_step_wall_seconds": walls["decode"],
+        "decode_step_io_wait_seconds": io_wait,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
     }

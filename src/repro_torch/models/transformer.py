@@ -1,11 +1,13 @@
-"""Decoder stack for the port's dense attention models.
+"""Decoder stack of the port: dense attention, and the Zamba2-style hybrid
+of Mamba2 blocks with shared-weight attention.
 
 :class:`ModelConfig` is the reference's config record, copied; the params
 are a plain dict of tensors with the reference ``init_params`` layout (so
-:mod:`repro_torch.bridge` can load the reference's weights one to one), and
+:mod:`repro_torch.bridge` can load the reference's weights one to one),
+``forward`` is the teacher-forced full-sequence forward, and
 :class:`TransformerAdapter` is the per-block prefill/decode interface the
-KVSwap engine consumes.  This slice builds ``"attn"`` blocks only; every
-other block kind (MoE, shared attention, Mamba2, xLSTM) raises.
+KVSwap engine consumes.  This slice builds ``"attn"``, ``"shared_attn"`` and
+``"mamba2"`` blocks; ``"moe_attn"``, ``"mlstm"`` and ``"slstm"`` raise.
 """
 
 from __future__ import annotations
@@ -17,8 +19,21 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 ATTN_KINDS = ("attn", "moe_attn", "shared_attn")
+BUILT_KINDS = ("attn", "shared_attn", "mamba2")
+_LATER = {"moe_attn": "MoE attention (layers.moe)", "mlstm": "xLSTM (mlstm)",
+          "slstm": "xLSTM (slstm)"}
+
+
+def _refuse_later_kinds(cfg) -> None:
+    bad = sorted({k for k in cfg.blocks if k not in BUILT_KINDS})
+    if bad:
+        raise NotImplementedError(
+            f"block kinds {bad} are not ported to repro_torch yet ("
+            + ", ".join(_LATER.get(k, k) for k in bad)
+            + "); they come with a later slice of the port (see ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,31 +132,95 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None,
     def norm(dim: int) -> dict:
         return {"scale": torch.ones(dim, device=dev, dtype=dtype)}
 
+    _refuse_later_kinds(cfg)
     d, hd = cfg.d_model, cfg.head_dim
-    blocks = []
-    for kind in cfg.blocks:
-        if kind != "attn":
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (dense 'attn' blocks only)")
+
+    def attention() -> dict:
         attn = {"wq": dense(d, cfg.n_heads * hd), "wk": dense(d, cfg.n_kv_heads * hd),
                 "wv": dense(d, cfg.n_kv_heads * hd), "wo": dense(cfg.n_heads * hd, d)}
         if cfg.qk_norm:
             attn["q_norm"], attn["k_norm"] = norm(hd), norm(hd)
-        blocks.append({
-            "attn_norm": norm(d),
-            "attn": attn,
-            "mlp_norm": norm(d),
-            "mlp": {"w_gate": dense(d, cfg.d_ff), "w_up": dense(d, cfg.d_ff),
-                    "w_down": dense(cfg.d_ff, d)},
-        })
+        return attn
+
+    def mlp() -> dict:
+        return {"w_gate": dense(d, cfg.d_ff), "w_up": dense(d, cfg.d_ff),
+                "w_down": dense(cfg.d_ff, d)}
+
+    blocks = []
+    for kind in cfg.blocks:
+        if kind == "attn":
+            blocks.append({"attn_norm": norm(d), "attn": attention(),
+                           "mlp_norm": norm(d), "mlp": mlp()})
+        elif kind == "shared_attn":
+            # per-block input norm; the attention and MLP weights are shared
+            blocks.append({"attn_norm": norm(d)})
+        else:   # mamba2
+            blocks.append({"norm": norm(d),
+                           "mamba": S.init_mamba2(generator=generator, device=dev,
+                                                  d_model=d, d_state=cfg.ssm_state,
+                                                  expand=cfg.ssm_expand, dtype=dtype)})
     params = {
         "embed": _normal((cfg.vocab_size, d), 0.02, **kw),
         "blocks": blocks,
         "final_norm": norm(d),
     }
+    if "shared_attn" in cfg.blocks:
+        params["shared_attn"] = {"attn": attention(), "mlp_norm": norm(d), "mlp": mlp()}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, cfg.vocab_size)
     return params
+
+
+# --------------------------------------------------------------------------
+# full-sequence forward (teacher-forced reference, prefill)
+# --------------------------------------------------------------------------
+
+
+def _attn_params(params, cfg: ModelConfig, layer: int):
+    """``(norm holder, attention weights, MLP holder)`` of an attention
+    block: a ``shared_attn`` block keeps only its input norm and uses the
+    shared attention and MLP weights."""
+    blk = params["blocks"][layer]
+    if cfg.blocks[layer] == "shared_attn":
+        return blk, params["shared_attn"]["attn"], params["shared_attn"]
+    return blk, blk["attn"], blk
+
+
+def _qkv(cfg: ModelConfig, attn_p, h, positions):
+    return L.attention_qkv(attn_p, h, positions, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                           rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
+
+
+def block_forward(params, cfg: ModelConfig, layer: int, x: torch.Tensor,
+                  positions: torch.Tensor, state=None, *, return_kv: bool = False):
+    """Full-sequence forward through one block: ``x [B, S, D]`` → ``(x,
+    kv_or_state)`` — ``(k, v)`` post-RoPE for an attention block when
+    ``return_kv``, the new recurrent state for a Mamba2 block."""
+    kind = cfg.blocks[layer]
+    if kind in ATTN_KINDS:
+        nb, attn_p, mlp_holder = _attn_params(params, cfg, layer)
+        q, k, v = _qkv(cfg, attn_p, L.rmsnorm(nb["attn_norm"], x), positions)
+        o = L.causal_attention(q, k, v)
+        x = x + o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim) @ attn_p["wo"]
+        x = x + L.swiglu(mlp_holder["mlp"], L.rmsnorm(mlp_holder["mlp_norm"], x))
+        return x, ((k, v) if return_kv else None)
+    blk = params["blocks"][layer]
+    y, st = S.mamba2_forward(blk["mamba"], L.rmsnorm(blk["norm"], x), state)
+    return x + y, st
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced forward: ``tokens [B, S]`` → logits ``[B, S, V]``."""
+    _refuse_later_kinds(cfg)
+    x = params["embed"][tokens]
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].repeat(b, 1)
+    for i in range(len(cfg.blocks)):
+        x, _ = block_forward(params, cfg, i, x, positions)
+    x = L.rmsnorm(params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
 
 
 # --------------------------------------------------------------------------
@@ -150,15 +229,16 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None,
 
 
 class TransformerAdapter:
-    """Implements :class:`repro_torch.core.adapter.ModelAdapter` for dense
-    attention stacks."""
+    """Implements :class:`repro_torch.core.adapter.ModelAdapter` for the
+    port's stacks.
+
+    ``n_layers`` counts **all** blocks; ``layer_kinds`` marks each as
+    ``"kv"`` (attention, KV on disk) or ``"state"`` (Mamba2, recurrent
+    state), so the engine routes state blocks through its state path.
+    """
 
     def __init__(self, cfg: ModelConfig):
-        bad = [k for k in cfg.blocks if k != "attn"]
-        if bad:
-            raise NotImplementedError(
-                f"block kinds {sorted(set(bad))} are not ported yet "
-                "(dense 'attn' blocks only)")
+        _refuse_later_kinds(cfg)
         self.cfg = cfg
         self.n_layers = len(cfg.blocks)
         self.n_heads = cfg.n_heads
@@ -167,13 +247,7 @@ class TransformerAdapter:
         self.d_model = cfg.d_model
         self.d_ff = cfg.d_ff or 4 * cfg.d_model
         self.vocab_size = cfg.vocab_size
-        self.layer_kinds = ("kv",) * self.n_layers
-
-    def _qkv(self, attn_p, h, positions):
-        cfg = self.cfg
-        return L.attention_qkv(attn_p, h, positions, n_heads=cfg.n_heads,
-                               n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                               rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
+        self.layer_kinds = tuple("kv" if k in ATTN_KINDS else "state" for k in cfg.blocks)
 
     # -- embedding / head -------------------------------------------------
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -188,13 +262,14 @@ class TransformerAdapter:
     def prefill_block(self, params, layer: int, x: torch.Tensor, positions: torch.Tensor):
         """Full-attention prefill through block ``layer``: ``x [B, S, D]`` →
         ``(x_out, k [B, S, H_kv, d], v)`` with K post-RoPE (what gets cached)."""
-        blk = params["blocks"][layer]
-        h = L.rmsnorm(blk["attn_norm"], x)
-        q, k, v = self._qkv(blk["attn"], h, positions)
-        o = L.causal_attention(q, k, v)
-        x = x + o.reshape(*x.shape[:-1], self.n_heads * self.head_dim) @ blk["attn"]["wo"]
-        x = x + L.swiglu(blk["mlp"], L.rmsnorm(blk["mlp_norm"], x))
+        x, (k, v) = block_forward(params, self.cfg, layer, x, positions, return_kv=True)
         return x, k, v
+
+    def prefill_state_block(self, params, layer: int, x: torch.Tensor,
+                            positions: torch.Tensor):
+        """Prefill through state block ``layer`` (chunked SSD, kernel C on the
+        card) → ``(x_out, state)``."""
+        return block_forward(params, self.cfg, layer, x, positions)
 
     # -- decode ------------------------------------------------------------
     def gather_context(self, dev_k, dev_v, slots, tail_k, tail_v, tail_fill):
@@ -208,14 +283,28 @@ class TransformerAdapter:
     def decode_block(self, params, layer: int, x, positions, k_ctx, v_ctx, ctx_mask):
         """One-token decode: ``x [B, D]`` at ``positions [B]`` attending to the
         assembled context plus itself → ``(x_out, k_new [B, H_kv, d], v_new)``."""
-        blk = params["blocks"][layer]
-        h = L.rmsnorm(blk["attn_norm"], x)
-        q, k_new, v_new = self._qkv(blk["attn"], h[:, None], positions[:, None])
+        cfg = self.cfg
+        nb, attn_p, mlp_holder = _attn_params(params, cfg, layer)
+        h = L.rmsnorm(nb["attn_norm"], x)
+        q, k_new, v_new = _qkv(cfg, attn_p, h[:, None], positions[:, None])
         q, k_new, v_new = q[:, 0], k_new[:, 0], v_new[:, 0]
         o = L.decode_attention(q, k_ctx, v_ctx, ctx_mask, k_new, v_new)
-        x = x + o.reshape(x.shape[0], self.n_heads * self.head_dim) @ blk["attn"]["wo"]
-        x = x + L.swiglu(blk["mlp"], L.rmsnorm(blk["mlp_norm"], x))
+        x = x + o.reshape(x.shape[0], self.n_heads * self.head_dim) @ attn_p["wo"]
+        x = x + L.swiglu(mlp_holder["mlp"], L.rmsnorm(mlp_holder["mlp_norm"], x))
         return x, k_new, v_new
+
+    def decode_state_block(self, params, layer: int, x: torch.Tensor,
+                           positions: torch.Tensor, state: dict):
+        """One-token step of state block ``layer``: ``x [B, D]`` → ``(x_out,
+        state)``."""
+        blk = params["blocks"][layer]
+        y, st = S.mamba2_step(blk["mamba"], L.rmsnorm(blk["norm"], x), state)
+        return x + y, st
+
+    def init_state(self, params, layer: int, batch: int) -> dict:
+        if self.cfg.blocks[layer] != "mamba2":
+            raise ValueError(f"layer {layer} has no state")
+        return S.mamba2_init_state(params["blocks"][layer]["mamba"], batch)
 
     # -- predictor ---------------------------------------------------------
     def predict_query(self, params, layer: int, x: torch.Tensor,
@@ -223,8 +312,8 @@ class TransformerAdapter:
         """Layer ``layer``'s query (input norm, Q projection, qk-norm, RoPE)
         from a possibly approximate input ``x [B, D]`` → ``[B, H, d]``."""
         cfg = self.cfg
-        attn_p = params["blocks"][layer]["attn"]
-        h = L.rmsnorm(params["blocks"][layer]["attn_norm"], x)
+        nb, attn_p, _ = _attn_params(params, cfg, layer)
+        h = L.rmsnorm(nb["attn_norm"], x)
         q = (h @ attn_p["wq"]).reshape(x.shape[0], cfg.n_heads, cfg.head_dim)
         if cfg.qk_norm:
             q = L.rmsnorm(attn_p["q_norm"], q)

@@ -11,6 +11,10 @@ Tolerances: kernel A folds the head sum before the dot product, so its
 scores round differently from the plain per-head sum; they are held to
 1e-5 of the row's score scale, and masked groups must be exactly -1e30.
 Kernel B's outputs are convex combinations of O(1) values, held to 1e-5.
+Kernel C sums up to Q = 128 decayed products in another order than its
+plain version (and with ``expf`` for ``torch.exp``): held to 1e-4 of
+``max(1, |y|max)``, ten times inside the JAX package's own bound for its
+Pallas kernel (1e-3 absolute).
 """
 
 import numpy as np
@@ -36,6 +40,34 @@ def _score_inputs(seed, b, h, r, n):
     k = rng.standard_normal((b, n, r)).astype(np.float32)
     vl = rng.integers(1, n + 1, b).astype(np.int32)
     return q, k, vl
+
+
+def ssd_inputs(seed, b, nc, q, h, p, n, *, steep=False, pad=0):
+    """Kernel C's inputs, as ``mamba2_forward`` makes them: ``cum`` is the
+    in-chunk cumulative sum of a non-positive log-decay; ``steep`` makes it
+    fall by up to 45 a token (``a_log`` = log 64 at full width), so the
+    exponent above the diagonal passes +5000; ``pad`` zeroes the last
+    ``pad`` tokens of the last chunk as padding arrives (dt and log-decay 0)."""
+    rng = np.random.default_rng(seed)
+    xh = rng.standard_normal((b, nc, q, h, p)).astype(np.float32)
+    bm = rng.standard_normal((b, nc, q, n)).astype(np.float32)
+    cm = rng.standard_normal((b, nc, q, n)).astype(np.float32)
+    dt = rng.random((b, nc, q, h)).astype(np.float32)
+    ld = -dt * (np.linspace(1.0, 45.0, h, dtype=np.float32) if steep else rng.random(h))
+    if pad:
+        for t in (xh, bm, cm, dt, ld):
+            t[:, -1, q - pad:] = 0
+    cum = np.cumsum(ld, axis=2).astype(np.float32)
+    return xh, bm, cm, dt, cum
+
+
+SSD_TOL = 1e-4      # of max(1, |y|max)
+SSD_SHAPES = [dict(b=4, nc=16, q=128, h=64, p=64, n=64),          # the main path
+              dict(b=1, nc=1, q=16, h=2, p=8, n=4),
+              dict(b=2, nc=3, q=64, h=4, p=16, n=16),
+              dict(b=1, nc=2, q=128, h=8, p=32, n=64, steep=True),
+              dict(b=2, nc=2, q=128, h=9, p=64, n=64, pad=37),
+              dict(b=1, nc=1, q=100, h=3, p=8, n=128, steep=True, pad=5)]
 
 
 @pytest.mark.cuda
@@ -66,3 +98,28 @@ class TestCudaKernels:
         got = ops.gather_attention(q, k, v, mask)
         want = ops.gather_attention_plain(q, k, v, mask)
         assert float((got - want).abs().max()) <= 1e-5
+
+    @pytest.mark.parametrize("shape", SSD_SHAPES,
+                             ids=lambda d: "-".join(f"{k}{v}" for k, v in d.items()))
+    def test_ssd_chunk(self, cuda_device, shape):
+        args = [torch.from_numpy(a).to(cuda_device) for a in ssd_inputs(6, **shape)]
+        before = ops.ssd_chunk.launches
+        got = ops.ssd_chunk(*args)
+        assert ops.ssd_chunk.launches == before + 1
+        want = ops.ssd_chunk_plain(*args)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        if shape.get("pad"):
+            assert not bool(got[:, -1, shape["q"] - shape["pad"]:].any())
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= SSD_TOL * scale
+
+    def test_ssd_chunk_refuses_what_it_cannot_take(self, cuda_device):
+        args = [torch.from_numpy(a).to(cuda_device)
+                for a in ssd_inputs(7, b=1, nc=1, q=16, h=2, p=8, n=4)]
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.ssd_chunk(args[0].transpose(3, 4).contiguous().transpose(3, 4), *args[1:])
+        big = [torch.from_numpy(a).to(cuda_device)
+               for a in ssd_inputs(7, b=1, nc=1, q=256, h=2, p=8, n=4)]
+        with pytest.raises(ValueError, match="Q <= 128"):
+            ops.ssd_chunk(*big)
