@@ -6,9 +6,10 @@
 1. prints the card's name and power limit, builds every CUDA kernel from
    ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a (build seconds
    and the compiler's register/shared-memory report);
-2. holds each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at ragged shapes, and times the kernel, the plain
-   version and (where one exists) one library call with CUDA events;
+2. holds each kernel against its plain PyTorch version on the card, at
+   each main path's shapes and at ragged shapes, and times the kernel, the
+   plain version and (where one exists) one library call with CUDA events
+   at each path's shapes;
 3. drives the first main path: a ``ServeSession`` at Llama-3.1-8B width (all
    32 layers, fp32 random weights from seed 0) answering 6 greedy requests
    of 1024-2048 prompt tokens and 32 new tokens each over 4 slots, and
@@ -24,9 +25,10 @@
    prefill and kernels A and B once per attention layer per decode step;
    then generates at 12 blocks with ``async_io`` and ``device_resident``
    each on and off and requires bit-identical tokens;
-5. prints the ``{"kernels": [...]}`` line (``launches``: the kernel's launches
-   summed over the two main paths, each counted from 0 just before its run),
-   then, last, the ``{"ok": true, ...}`` line.
+5. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
+   path that runs it (``path``): its time, bound, plain and library times
+   at that path's shapes, and ``launches`` in that path's main run, counted
+   from 0 just before it; then, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase exits nonzero without the last line.  Imports no JAX and
 nothing of the JAX package ``repro``.  Needs one CUDA card.
@@ -53,6 +55,11 @@ ATTN_TOL = 1e-5                # kernel B: |err| <= 1e-5 x max(1, |output|max)
 # kernel C sums up to Q = 128 decayed products in another order than its
 # plain version, with expf for torch.exp: |err| <= 1e-4 x max(1, |y|max)
 SSD_TOL = 1e-4
+LLAMA, ZAMBA = "llama3-8b", "zamba2-1.2b"      # the two main paths
+# each kernel's source and the TPU kernel it replaces
+SOURCES = {"lowrank_group_scores": ("lowrank_score.cu", "src/repro/kernels/lowrank_score.py:23"),
+           "gather_attention": ("gather_attention.cu", "src/repro/kernels/gather_attention.py:28"),
+           "ssd_chunk": ("ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:25")}
 
 
 def fail(msg: str) -> None:
@@ -165,53 +172,78 @@ def check_ssd(ops, dev, gen, shape: dict) -> float:
     return err
 
 
-def kernel_checks(ops, select_groups, dev) -> list[dict]:
-    """The three kernels against their plain versions (main-path and ragged
-    shapes), then timed at the main paths' shapes."""
+def time_scores(ops, dev, gen, flush, b, h, r, n, g, valid) -> dict:
+    q = torch.randn((b, h, r), generator=gen, device=dev)
+    k = torch.randn((b, n, r), generator=gen, device=dev)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    n_valid = sum(valid)
+    bound, by = bound_ms(4 * (b * h * r + n_valid * r + b + b * n // g), 2 * n_valid * r + b * h * r)
+    return {"ms": device_ms(lambda: ops.lowrank_group_scores(q, k, vl, group_size=g), flush),
+            "plain_ms": device_ms(lambda: ops.lowrank_group_scores_plain(q, k, vl, group_size=g),
+                                  flush),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def time_attention(ops, dev, gen, flush, b, h, hk, d, s, mask) -> dict:
     import torch.nn.functional as F
 
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    k = torch.randn((b, s, hk, d), generator=gen, device=dev)
+    v = torch.randn((b, s, hk, d), generator=gen, device=dev)
+    q4, k4, v4, m4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), mask[:, None, None, :]
+    n_tok = int(mask.sum())
+    bound, by = bound_ms(4 * (2 * b * h * d + 2 * n_tok * hk * d) + b * s, 4 * n_tok * h * d)
+    return {"ms": device_ms(lambda: ops.gather_attention(q, k, v, mask), flush),
+            "plain_ms": device_ms(lambda: ops.gather_attention_plain(q, k, v, mask), flush),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, enable_gqa=hk != h), flush)}
+
+
+def kernel_checks(ops, select_groups, dev) -> list[dict]:
+    """The three kernels against their plain versions at each main path's
+    shapes and at ragged shapes, then timed at each path's shapes: one
+    entry per (kernel, path).  An entry's ``max_abs_err`` is the largest
+    over its path's shapes and the kernel's ragged shapes."""
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
+    entries = []
 
-    # kernel A: main path B=4, H=32, r=64, N=4096 (k_lr capacity), G=4, M=100
+    def entry(name, path, err, timed):
+        entries.append({"name": name, "path": path, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{SOURCES[name][0]}",
+                        "replaces": SOURCES[name][1], "max_abs_err": err, **timed})
+
+    # kernel A: B=4, H=32, r=64, N=4096 (k_lr capacity), G=4, M=100 on both
+    # paths; valid lengths: the Llama path's prompts, the Zamba2 path's
+    # prompts of 2048 halfway through its 32 decode steps
     b, h, r, n, g = 4, 32, 64, 4096, 4
-    valid = [1024, 1536, 2048, 1200]
-    err_a = check_scores(ops, select_groups, dev, gen, b, h, r, n, g, valid, 100)
+    valid_a = {LLAMA: [1024, 1536, 2048, 1200], ZAMBA: [2064] * 4}
+    err_a = 0.0
     for shape, vl in [((3, 16, 64, 1000, 4), [1000, 0, 100]),   # ragged N, empty row, masked tiles
                       ((2, 8, 32, 130, 8), [130, 7]),            # ragged last group
                       ((1, 4, 16, 64, 4), [64])]:
         err_a = max(err_a, check_scores(ops, select_groups, dev, gen, *shape, vl, 6))
-    q = torch.randn((b, h, r), generator=gen, device=dev)
-    k = torch.randn((b, n, r), generator=gen, device=dev)
-    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
-    ms_a = device_ms(lambda: ops.lowrank_group_scores(q, k, vl, group_size=g), flush)
-    plain_a = device_ms(lambda: ops.lowrank_group_scores_plain(q, k, vl, group_size=g), flush)
-    n_valid = sum(valid)
-    bound_a, by_a = bound_ms(4 * (b * h * r + n_valid * r + b + b * n // g),
-                             2 * n_valid * r + b * h * r)
+    for path, valid in valid_a.items():
+        err = check_scores(ops, select_groups, dev, gen, b, h, r, n, g, valid, 100)
+        entry("lowrank_group_scores", path, max(err, err_a),
+              time_scores(ops, dev, gen, flush, b, h, r, n, g, valid))
 
-    # kernel B: main path H=32, H_kv=8, d=128, S = M*G + G + 1 = 405
-    b, h, hk, d, s = 4, 32, 8, 128, 405
-    mask = torch.rand((b, s), generator=gen, device=dev) > 0.2
-    mask[:, -1] = True                                       # the token itself
-    err_b = check_attention(ops, dev, gen, b, h, hk, d, s, mask)
+    # kernel B: S = M*G + G + 1 = 405; Llama H=32, H_kv=8, d=128; Zamba2
+    # H = H_kv = 32, d=64 (one query head per KV head)
+    shape_b = {LLAMA: (4, 32, 8, 128, 405), ZAMBA: (4, 32, 32, 64, 405)}
+    err_b = 0.0
     for shape in [(2, 8, 2, 64, 37), (3, 16, 8, 128, 301), (1, 4, 4, 32, 1)]:
         bb, _, _, _, ss = shape
         m2 = torch.rand((bb, ss), generator=gen, device=dev) > 0.3
         m2[0, :min(ss, 64)] = False          # a fully masked tile (row 0 of S=1: fully masked)
         err_b = max(err_b, check_attention(ops, dev, gen, *shape, m2))
-    q = torch.randn((b, h, d), generator=gen, device=dev)
-    kk = torch.randn((b, s, hk, d), generator=gen, device=dev)
-    vv = torch.randn((b, s, hk, d), generator=gen, device=dev)
-    ms_b = device_ms(lambda: ops.gather_attention(q, kk, vv, mask), flush)
-    plain_b = device_ms(lambda: ops.gather_attention_plain(q, kk, vv, mask), flush)
-    q4, k4, v4 = q[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2)
-    m4 = mask[:, None, None, :]
-    lib_b = device_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=m4, enable_gqa=True), flush)
-    n_tok = int(mask.sum())
-    bound_b, by_b = bound_ms(4 * (2 * b * h * d + 2 * n_tok * hk * d) + b * s,
-                             4 * n_tok * h * d)
+    for path, (b, h, hk, d, s) in shape_b.items():
+        mask = torch.rand((b, s), generator=gen, device=dev) > 0.2
+        mask[:, -1] = True                                   # the token itself
+        err = check_attention(ops, dev, gen, b, h, hk, d, s, mask)
+        entry("gather_attention", path, max(err, err_b),
+              time_attention(ops, dev, gen, flush, b, h, hk, d, s, mask))
 
     # kernel C: Zamba2 prefill B=4, S=2048 in 16 chunks of Q=128, H=64, P=64, N=64
     path = dict(b=4, nc=16, q=128, h=64, p=64, n=64)
@@ -224,32 +256,25 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
                   dict(b=1, nc=1, q=64, h=4, p=16, n=16, steep=True, pad=11)]:
         err_c = max(err_c, check_ssd(ops, dev, gen, shape))
     args = ssd_inputs(gen, dev, **path)
-    ms_c = device_ms(lambda: ops.ssd_chunk(*args), flush)
-    plain_c = device_ms(lambda: ops.ssd_chunk_plain(*args), flush)
     bc, q, h, p, n = path["b"] * path["nc"], path["q"], path["h"], path["p"], path["n"]
     tri = q * (q + 1) // 2                    # (i, j) pairs on and below the diagonal
     bound_c, by_c = bound_ms(4 * sum(a.numel() for a in args) + 4 * bc * q * h * p,
                              bc * tri * (2 * n + 3 * h + 2 * h * p))
-    return [
-        {"name": "lowrank_group_scores", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/lowrank_score.cu",
-         "replaces": "src/repro/kernels/lowrank_score.py:23",
-         "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
-         "bound_ms": bound_a, "bound_by": by_a, "library_ms": None},
-        {"name": "gather_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/gather_attention.cu",
-         "replaces": "src/repro/kernels/gather_attention.py:28",
-         "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-         "bound_ms": bound_b, "bound_by": by_b, "library_ms": lib_b},
-        {"name": "ssd_chunk", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
-         "replaces": "src/repro/kernels/ssd_chunk.py:25",
-         "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c,
-         "bound_ms": bound_c, "bound_by": by_c, "library_ms": None},
-    ]
+    entry("ssd_chunk", ZAMBA, err_c,
+          {"ms": device_ms(lambda: ops.ssd_chunk(*args), flush),
+           "plain_ms": device_ms(lambda: ops.ssd_chunk_plain(*args), flush),
+           "bound_ms": bound_c, "bound_by": by_c, "library_ms": None})
+    return entries
 
 
-def hybrid_phases(run_hybrid_path, cfg, ecfg, dev, kernels, card) -> dict:
+def step_kernels_ms(entries, path, launches, steps) -> float:
+    """Device ms per decode step in the decode kernels of ``path``: each
+    kernel's launches x its time at that path's shapes, over the steps."""
+    return sum(e["ms"] * launches[e["name"]] for e in entries
+               if e["path"] == path and e["name"] != "ssd_chunk") / steps
+
+
+def hybrid_phases(run_hybrid_path, cfg, ecfg, dev, entries, card) -> dict:
     """The second main path (Zamba2-1.2B through ``generate``) and its
     12-block bit-identity checks; returns the main run's launches."""
     n_mamba, n_kv = cfg.blocks.count("mamba2"), cfg.blocks.count("shared_attn")
@@ -280,11 +305,11 @@ def hybrid_phases(run_hybrid_path, cfg, ecfg, dev, kernels, card) -> dict:
           f"prefill included); peak device memory {run['peak_memory_bytes'] / 2**30:.2f} GiB"
           f"  [{card}]", flush=True)
     # decode step: blocked on group reads, kernels A and B (launches per
-    # step x timed ms; kernel C runs only in the prefill), and the rest
+    # step x their time at this path's shapes; kernel C runs only in the
+    # prefill), and the rest
     wait_ms = statistics.median(run["decode_step_io_wait_seconds"]) * 1e3
-    kern_ms = sum(kr["ms"] * launches[kr["name"]] for kr in kernels
-                  if kr["name"] != "ssd_chunk") / steps
-    ssd_ms = next(kr["ms"] for kr in kernels if kr["name"] == "ssd_chunk") * launches["ssd_chunk"]
+    kern_ms = step_kernels_ms(entries, ZAMBA, launches, steps)
+    ssd_ms = next(e["ms"] for e in entries if e["name"] == "ssd_chunk") * launches["ssd_chunk"]
     print(f"hybrid path: decode step median {med:.1f} ms = wait on group reads {wait_ms:.1f} ms"
           f" + kernels A, B {kern_ms:.2f} ms + rest {med - wait_ms - kern_ms:.1f} ms; prefill "
           f"{run['prefill_seconds'] * 1e3:.1f} ms holds kernel C {ssd_ms:.2f} ms  [{card}]",
@@ -336,12 +361,13 @@ def main() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    kernels = kernel_checks(ops, select_groups, dev)
-    for kr in kernels:
-        lib = "-" if kr["library_ms"] is None else f"{kr['library_ms'] * 1e3:.2f} us"
-        print(f"kernel {kr['name']}: {kr['ms'] * 1e3:.2f} us, plain {kr['plain_ms'] * 1e3:.2f} us, "
-              f"bound {kr['bound_ms'] * 1e3:.2f} us ({kr['bound_by']}), library {lib}, "
-              f"max abs err {kr['max_abs_err']:.3g}  [{card}]", flush=True)
+    entries = kernel_checks(ops, select_groups, dev)
+    for e in entries:
+        lib = "-" if e["library_ms"] is None else f"{e['library_ms'] * 1e3:.2f} us"
+        print(f"kernel {e['name']} at {e['path']}'s shapes: {e['ms'] * 1e3:.2f} us, plain "
+              f"{e['plain_ms'] * 1e3:.2f} us, bound {e['bound_ms'] * 1e3:.2f} us "
+              f"({e['bound_by']}), library {lib}, max abs err {e['max_abs_err']:.3g}  [{card}]",
+              flush=True)
 
     cfg = llama3_8b.config()
     ecfg = EngineConfig(group_size=4, n_select=100, rank=64, reuse_capacity=160,
@@ -370,8 +396,7 @@ def main() -> None:
     # by the engine), the two kernels (launches per step x their timed ms),
     # and the rest (host work and the other device operations)
     wait_ms = statistics.median(main_run["decode_step_io_wait_seconds"]) * 1e3
-    kern_ms = sum(kr["ms"] * launches[kr["name"]] for kr in kernels
-                  if kr["name"] in launches) / main_run["decode_steps"]
+    kern_ms = step_kernels_ms(entries, LLAMA, launches, main_run["decode_steps"])
     print(f"main path: decode step median {statistics.median(steps) * 1e3:.1f} ms = "
           f"wait on group reads {wait_ms:.1f} ms + kernels {kern_ms:.2f} ms + rest "
           f"{statistics.median(steps) * 1e3 - wait_ms - kern_ms:.1f} ms  [{card}]", flush=True)
@@ -392,14 +417,14 @@ def main() -> None:
     del runs
     torch.cuda.empty_cache()
 
-    hybrid_launches = hybrid_phases(run_hybrid_path, zamba2_1p2b.config(), ecfg, dev,
-                                    kernels, card)
-
-    for kr in kernels:
-        kr["launches"] = launches.get(kr["name"], 0) + hybrid_launches[kr["name"]]
-    print(json.dumps({"kernels": [{key: kr[key] for key in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")} for kr in kernels]}))
+    path_launches = {LLAMA: launches,
+                     ZAMBA: hybrid_phases(run_hybrid_path, zamba2_1p2b.config(), ecfg, dev,
+                                          entries, card)}
+    for e in entries:
+        e["launches"] = path_launches[e["path"]][e["name"]]
+    print(json.dumps({"kernels": [{key: e[key] for key in (
+        "name", "path", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

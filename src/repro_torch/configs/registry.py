@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` → config + model builders.
 
-The arch names are the reference's.  An arch whose config or block kinds
-the port does not build yet raises ``NotImplementedError`` naming what is
-missing.
+The arch names are the reference's.  An arch whose config the port does
+not hold yet raises ``NotImplementedError``; block kinds the port does not
+build raise where the model is built (``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -11,31 +11,18 @@ import importlib
 
 import torch
 
-# the reference's arch names, in its order: the port's config module, or
-# what the arch waits for (ROADMAP.md, queue of modules to port)
+# the reference's arch names, in its order; the paper's second evaluation
+# model, beyond the assigned pool, comes last
+ARCHS = ("llama3-8b", "olmoe-1b-7b", "stablelm-12b", "zamba2-1.2b", "qwen3-32b",
+         "granite-8b", "chameleon-34b", "llama4-maverick-400b-a17b",
+         "whisper-large-v3", "xlstm-1.3b")
+ALL_ARCHS = ARCHS + ("qwen3-8b",)
+# the archs whose config the port holds
 _MODULES = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
-    "olmoe-1b-7b": None,
-    "stablelm-12b": None,
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
-    "qwen3-32b": None,
-    "granite-8b": None,
-    "chameleon-34b": None,
-    "llama4-maverick-400b-a17b": None,
-    "whisper-large-v3": None,
-    "xlstm-1.3b": None,
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
 }
-_LATER = {
-    "olmoe-1b-7b": "MoE attention blocks (moe_attn)",
-    "llama4-maverick-400b-a17b": "MoE attention blocks (moe_attn)",
-    "whisper-large-v3": "the Whisper encoder-decoder (models/whisper.py)",
-    "xlstm-1.3b": "xLSTM blocks (mlstm, slstm)",
-}
-# the paper's second evaluation model, beyond the assigned pool
-_EXTRA = ("qwen3-8b",)
-ARCHS = tuple(a for a in _MODULES if a not in _EXTRA)
-ALL_ARCHS = tuple(_MODULES)
 
 
 def list_archs() -> tuple:
@@ -43,13 +30,12 @@ def list_archs() -> tuple:
 
 
 def _module(arch_id: str):
-    if arch_id not in _MODULES:
+    if arch_id not in ALL_ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; choose from {ARCHS}")
-    if _MODULES[arch_id] is None:
+    if arch_id not in _MODULES:
         raise NotImplementedError(
-            f"arch {arch_id!r} needs {_LATER.get(arch_id, 'its config')}, which is not "
-            "ported to repro_torch yet; it comes with a later slice of the port "
-            "(see ROADMAP.md)")
+            f"arch {arch_id!r} is not ported to repro_torch yet; it comes with a later "
+            "slice of the port (see ROADMAP.md)")
     return importlib.import_module(_MODULES[arch_id])
 
 

@@ -20,6 +20,7 @@ on the attention layers only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -42,6 +43,71 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _model_and_adapter(cfg: ModelConfig, calib: np.ndarray, *, rank: int, seed: int,
+                       dev: torch.device):
+    """Random weights from ``seed``, and the low-rank adapter fitted offline
+    from the first KV layer's K on the prompt ``calib`` (after the state
+    blocks before that layer)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, generator=gen, device=dev)
+    model = TransformerAdapter(cfg)
+    first_kv = model.layer_kinds.index("kv")
+    tok = torch.as_tensor(calib[None], device=dev)
+    pos = torch.arange(tok.shape[1], device=dev)[None]
+    x = model.embed(params, tok)
+    for layer in range(first_kv):
+        x, _ = model.prefill_state_block(params, layer, x, pos)
+    _, k0, _ = model.prefill_block(params, first_kv, x, pos)
+    return model, params, fit_adapter(k0[0].cpu().numpy(), rank=rank, device=dev)
+
+
+@contextlib.contextmanager
+def _watched(engine: KVSwapEngine, dev: torch.device, *names: str):
+    """Wrap the engine's methods ``names``: each call's wall time (to the
+    device's end) goes to ``rec[name]``, and ``rec["finite"]`` stays true
+    while every call's logits are finite.  The wrappers hold the engine's
+    bound methods, so they are deleted on exit: otherwise the engine (and
+    the model's weights) would wait in a reference cycle for the garbage
+    collector after the engine closes."""
+    rec: dict = {"finite": True, **{name: [] for name in names}}
+
+    def wrap(name, fn):
+        def call(arg):
+            t0 = time.perf_counter()
+            logits = fn(arg)
+            _sync(dev)
+            rec[name].append(time.perf_counter() - t0)
+            rec["finite"] = rec["finite"] and bool(torch.isfinite(logits).all())
+            return logits
+        return call
+
+    for name in names:
+        setattr(engine, name, wrap(name, getattr(engine, name)))
+    try:
+        yield rec
+    finally:
+        for name in names:
+            delattr(engine, name)
+
+
+@contextlib.contextmanager
+def _counted(kernels, dev: torch.device):
+    """Peak device memory and each kernel's launches, both counted from
+    entry; the launch counts fill the yielded dict on exit."""
+    counts: dict = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for kernel in kernels:
+        kernel.launches = 0
+    _sync(dev)
+    yield counts
+    counts.update({k.__name__: k.launches for k in kernels})
+
+
+def _peak(dev: torch.device):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
 def run_main_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
                   engine_cfg: EngineConfig | None = None, slots: int = 4,
                   n_requests: int = 6, prompt_len: tuple[int, int] = (1024, 2048),
@@ -56,73 +122,41 @@ def run_main_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     ecfg = engine_cfg or EngineConfig()
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cfg, generator=gen, device=dev)
-    model = TransformerAdapter(cfg)
     rng = np.random.default_rng(seed)
     lo, hi = prompt_len
     calib = rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
                for _ in range(n_requests)]
+    model, params, adapter = _model_and_adapter(cfg, calib, rank=ecfg.rank, seed=seed, dev=dev)
 
-    # the adapter: layer 0's K on one calibration prompt, fitted offline
-    tok = torch.as_tensor(calib[None], device=dev)
-    pos = torch.arange(tok.shape[1], device=dev)[None]
-    _, k0, _ = model.prefill_block(params, 0, model.embed(params, tok), pos)
-    adapter = fit_adapter(k0[0].cpu().numpy(), rank=ecfg.rank, device=dev)
-    del k0
-
-    finite = True
     step_wall: list[float] = []
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
     with ServeSession(model, params, ecfg, slots=slots, adapter=adapter,
-                      device=dev) as sess:
-        engine = sess.engine
-        decode = engine.decode_step
-
-        def checked_decode(tokens):
-            nonlocal finite
-            logits = decode(tokens)
-            finite = finite and bool(torch.isfinite(logits).all())
-            return logits
-
-        engine.decode_step = checked_decode
+                      device=dev) as sess, _watched(sess.engine, dev, "decode_step") as rec:
         rids = [sess.submit(p, max_new) for p in prompts]
-        for kernel in KERNELS:
-            kernel.launches = 0
-        _sync(dev)
-        t_start = time.perf_counter()
-        while sess.has_work:
-            t0 = time.perf_counter()
-            events = sess.step()
-            _sync(dev)
-            if not any(e["type"] == "admit" for e in events):
-                step_wall.append(time.perf_counter() - t0)
-        wall = time.perf_counter() - t_start
-        launches = {k.__name__: k.launches for k in KERNELS}
-        done = sess.completed
-        outputs = [np.asarray(done[r].output) for r in rids]
-        n_steps = len(engine.step_log)
-        io_wait = [s.io_wait_seconds for s in engine.step_log]
+        with _counted(KERNELS, dev) as launches:
+            t_start = time.perf_counter()
+            while sess.has_work:
+                t0 = time.perf_counter()
+                events = sess.step()
+                _sync(dev)
+                if not any(e["type"] == "admit" for e in events):
+                    step_wall.append(time.perf_counter() - t0)
+            wall = time.perf_counter() - t_start
+        outputs = [np.asarray(sess.completed[r].output) for r in rids]
+        io_wait = [s.io_wait_seconds for s in sess.engine.step_log]
         stats = sess.stats()
-        # the wrapper holds the engine's bound method: drop it, or the engine
-        # (and the model's weights) would wait in a reference cycle for the
-        # garbage collector after the session closes
-        del engine.decode_step
     return {
         "outputs": outputs,
         "prompt_lens": [len(p) for p in prompts],
-        "decode_steps": n_steps,
+        "decode_steps": len(io_wait),
         "n_layers": cfg.n_layers,
         "launches": launches,
-        "logits_finite": finite,
+        "logits_finite": rec["finite"],
         "wall_seconds": wall,
         "tokens_per_s": sum(len(o) for o in outputs) / wall,
         "decode_step_wall_seconds": step_wall,
         "decode_step_io_wait_seconds": io_wait,
-        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if dev.type == "cuda" else None),
+        "peak_memory_bytes": _peak(dev),
         "session_clock": stats["modeled_seconds"],
     }
 
@@ -143,54 +177,20 @@ def run_hybrid_path(cfg: ModelConfig, *, device=None, n_layers: int | None = Non
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers, block_pattern=cfg.blocks[:n_layers])
     ecfg = engine_cfg or EngineConfig()
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cfg, generator=gen, device=dev)
-    model = TransformerAdapter(cfg)
     rng = np.random.default_rng(seed)
     calib = rng.integers(0, cfg.vocab_size, prompt_len)
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    model, params, adapter = _model_and_adapter(cfg, calib, rank=ecfg.rank, seed=seed, dev=dev)
 
-    # the adapter: the first KV layer's K on one calibration prompt
-    first_kv = model.layer_kinds.index("kv")
-    tok = torch.as_tensor(calib[None], device=dev)
-    pos = torch.arange(prompt_len, device=dev)[None]
-    x = model.embed(params, tok)
-    for layer in range(first_kv):
-        x, _ = model.prefill_state_block(params, layer, x, pos)
-    _, k0, _ = model.prefill_block(params, first_kv, x, pos)
-    adapter = fit_adapter(k0[0].cpu().numpy(), rank=ecfg.rank, device=dev)
-    del x, k0
-
-    finite = True
-    walls: dict[str, list[float]] = {"prefill": [], "decode": []}
-    with KVSwapEngine(model, params, ecfg, batch=batch, adapter=adapter,
-                      device=dev) as engine:
-        def timed(name, fn):
-            def call(arg):
-                nonlocal finite
-                t0 = time.perf_counter()
-                logits = fn(arg)
-                _sync(dev)
-                walls[name].append(time.perf_counter() - t0)
-                finite = finite and bool(torch.isfinite(logits).all())
-                return logits
-            return call
-
-        engine.prefill = timed("prefill", engine.prefill)
-        engine.decode_step = timed("decode", engine.decode_step)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        for kernel in HYBRID_KERNELS:
-            kernel.launches = 0
-        _sync(dev)
-        t_start = time.perf_counter()
-        tokens = engine.generate(prompts, max_new)
-        wall = time.perf_counter() - t_start
-        launches = {k.__name__: k.launches for k in HYBRID_KERNELS}
+    with KVSwapEngine(model, params, ecfg, batch=batch, adapter=adapter, device=dev) as engine, \
+            _watched(engine, dev, "prefill", "decode_step") as rec:
+        with _counted(HYBRID_KERNELS, dev) as launches:
+            t_start = time.perf_counter()
+            tokens = engine.generate(prompts, max_new)
+            wall = time.perf_counter() - t_start
         io_wait = [s.io_wait_seconds for s in engine.step_log]
         n_store_layers = engine.store.n_layers
         n_states = len(engine.states)
-        del engine.prefill, engine.decode_step   # no reference cycle through the wrappers
     return {
         "tokens": tokens,
         "n_layers": cfg.n_layers,
@@ -199,12 +199,11 @@ def run_hybrid_path(cfg: ModelConfig, *, device=None, n_layers: int | None = Non
         "n_states": n_states,
         "decode_steps": len(io_wait),
         "launches": launches,
-        "logits_finite": finite,
+        "logits_finite": rec["finite"],
         "wall_seconds": wall,
         "tokens_per_s": tokens.size / wall,
-        "prefill_seconds": walls["prefill"][0],
-        "decode_step_wall_seconds": walls["decode"],
+        "prefill_seconds": rec["prefill"][0],
+        "decode_step_wall_seconds": rec["decode_step"],
         "decode_step_io_wait_seconds": io_wait,
-        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if dev.type == "cuda" else None),
+        "peak_memory_bytes": _peak(dev),
     }

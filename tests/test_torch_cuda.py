@@ -87,7 +87,8 @@ class TestCudaKernels:
         assert float(((got - want).abs() / scale).masked_fill(masked, 0).max()) <= 1e-5
 
     @pytest.mark.parametrize("b,h,hk,d,s", [(2, 8, 2, 64, 300), (2, 16, 8, 128, 513),
-                                            (4, 32, 8, 128, 405), (1, 4, 4, 32, 1)])
+                                            (4, 32, 8, 128, 405), (4, 32, 32, 64, 405),
+                                            (1, 4, 4, 32, 1)])
     def test_gather_attention(self, cuda_device, b, h, hk, d, s):
         gen = torch.Generator(device=cuda_device).manual_seed(5)
         q = torch.randn((b, h, d), generator=gen, device=cuda_device)
