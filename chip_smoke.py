@@ -7,9 +7,11 @@
    ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a (build seconds
    and the compiler's register/shared-memory report);
 2. holds each kernel against its plain PyTorch version on the card, at
-   each main path's shapes and at ragged shapes, and times the kernel, the
-   plain version and (where one exists) one library call with CUDA events
-   at each path's shapes;
+   each main path's shapes and at ragged and edge shapes, and times the
+   kernel, the plain version and (where one exists) one library call with
+   CUDA events at each path's shapes, and the kernel alone with
+   ``torch.profiler``; prints the events' floor (one launch of a trivial
+   fill);
 3. drives the first main path: a ``ServeSession`` at Llama-3.1-8B width (all
    32 layers, fp32 random weights from seed 0) answering 6 greedy requests
    of 1024-2048 prompt tokens and 32 new tokens each over 4 slots, and
@@ -37,6 +39,7 @@ nothing of the JAX package ``repro``.  Needs one CUDA card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -93,6 +96,26 @@ def device_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
     return statistics.median(times)
 
 
+def profiled_ms(fn, flush: torch.Tensor, kernel: str, reps: int = 20) -> float | None:
+    """Device time of one ``fn()`` call spent in kernels whose name holds
+    ``kernel``, in ms, from ``torch.profiler`` over ``reps`` calls with L2
+    flushed before each: the kernel alone, without the launch and event
+    overhead that ``device_ms`` includes.  None where the profiler records
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.device_time_total for ev in prof.key_averages() if kernel in ev.key)
+    return total_us / reps / 1e3 if total_us else None
+
+
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -136,6 +159,8 @@ def check_attention(ops, dev, gen, b, h, hk, d, s, mask) -> float:
     err = float((got - want).abs().max())
     check(err <= ATTN_TOL * max(1.0, float(want.abs().max())),
           f"kernel B {b, h, hk, d, s}: max abs err {err:.3g} > {ATTN_TOL}")
+    check(not bool(got[~mask.any(dim=1)].any()), f"kernel B {b, h, hk, d, s}: a fully "
+          f"masked row is not 0")
     return err
 
 
@@ -178,7 +203,9 @@ def time_scores(ops, dev, gen, flush, b, h, r, n, g, valid) -> dict:
     vl = torch.tensor(valid, dtype=torch.int32, device=dev)
     n_valid = sum(valid)
     bound, by = bound_ms(4 * (b * h * r + n_valid * r + b + b * n // g), 2 * n_valid * r + b * h * r)
-    return {"ms": device_ms(lambda: ops.lowrank_group_scores(q, k, vl, group_size=g), flush),
+    kernel = functools.partial(ops.lowrank_group_scores, q, k, vl, group_size=g)
+    return {"ms": device_ms(kernel, flush),
+            "device_ms": profiled_ms(kernel, flush, "lowrank_group_scores_kernel"),
             "plain_ms": device_ms(lambda: ops.lowrank_group_scores_plain(q, k, vl, group_size=g),
                                   flush),
             "bound_ms": bound, "bound_by": by, "library_ms": None}
@@ -193,7 +220,9 @@ def time_attention(ops, dev, gen, flush, b, h, hk, d, s, mask) -> dict:
     q4, k4, v4, m4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), mask[:, None, None, :]
     n_tok = int(mask.sum())
     bound, by = bound_ms(4 * (2 * b * h * d + 2 * n_tok * hk * d) + b * s, 4 * n_tok * h * d)
-    return {"ms": device_ms(lambda: ops.gather_attention(q, k, v, mask), flush),
+    kernel = functools.partial(ops.gather_attention, q, k, v, mask)
+    return {"ms": device_ms(kernel, flush),
+            "device_ms": profiled_ms(kernel, flush, "gather_attention_kernel"),
             "plain_ms": device_ms(lambda: ops.gather_attention_plain(q, k, v, mask), flush),
             "bound_ms": bound, "bound_by": by,
             "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
@@ -222,7 +251,13 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
     err_a = 0.0
     for shape, vl in [((3, 16, 64, 1000, 4), [1000, 0, 100]),   # ragged N, empty row, masked tiles
                       ((2, 8, 32, 130, 8), [130, 7]),            # ragged last group
-                      ((1, 4, 16, 64, 4), [64])]:
+                      ((1, 4, 16, 64, 4), [64]),
+                      ((2, 8, 256, 600, 4), [600, 257]),         # r = 256: 16 float4 a lane
+                      ((2, 4, 30, 300, 4), [300, 45]),           # r % 4 != 0: scalar path
+                      ((2, 4, 3, 77, 5), [77, 12]),
+                      ((2, 16, 64, 1000, 1), [1000, 513]),       # G = 1
+                      ((1, 4, 16, 1000, 100), [900]),            # G > 64: several passes
+                      ((2, 8, 64, 130, 4), [5000, 131])]:        # valid_len > N
         err_a = max(err_a, check_scores(ops, select_groups, dev, gen, *shape, vl, 6))
     for path, valid in valid_a.items():
         err = check_scores(ops, select_groups, dev, gen, b, h, r, n, g, valid, 100)
@@ -237,6 +272,17 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
         bb, _, _, _, ss = shape
         m2 = torch.rand((bb, ss), generator=gen, device=dev) > 0.3
         m2[0, :min(ss, 64)] = False          # a fully masked tile (row 0 of S=1: fully masked)
+        err_b = max(err_b, check_attention(ops, dev, gen, *shape, m2))
+    # the split design's edges: S = 1, one token past a split boundary, many
+    # splits; rep = 8 at d = 128, 32 and 64, rep = 3, rep = 1; row 0 with a
+    # fully masked split in mid-row, the last row fully masked
+    for shape in [(2, 8, 8, 64, 1), (2, 8, 1, 128, 33), (3, 16, 2, 32, 4101),
+                  (3, 8, 1, 64, 405), (2, 6, 2, 32, 97), (2, 32, 32, 64, 65)]:
+        bb, _, _, _, ss = shape
+        m2 = torch.rand((bb, ss), generator=gen, device=dev) > 0.3
+        m2[0, 32:64] = False
+        m2[0, -1] = True
+        m2[-1] = False
         err_b = max(err_b, check_attention(ops, dev, gen, *shape, m2))
     for path, (b, h, hk, d, s) in shape_b.items():
         mask = torch.rand((b, s), generator=gen, device=dev) > 0.2
@@ -262,6 +308,7 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
                              bc * tri * (2 * n + 3 * h + 2 * h * p))
     entry("ssd_chunk", ZAMBA, err_c,
           {"ms": device_ms(lambda: ops.ssd_chunk(*args), flush),
+           "device_ms": profiled_ms(lambda: ops.ssd_chunk(*args), flush, "ssd_chunk_kernel"),
            "plain_ms": device_ms(lambda: ops.ssd_chunk_plain(*args), flush),
            "bound_ms": bound_c, "bound_by": by_c, "library_ms": None})
     return entries
@@ -362,12 +409,18 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     entries = kernel_checks(ops, select_groups, dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    tiny = torch.empty(1, device=dev)
+    print(f"timing floor: one launch of a one-element fill {device_ms(tiny.zero_, flush) * 1e3:.2f}"
+          f" us (the events and launch around every time below)  [{card}]")
+    del flush
     for e in entries:
         lib = "-" if e["library_ms"] is None else f"{e['library_ms'] * 1e3:.2f} us"
-        print(f"kernel {e['name']} at {e['path']}'s shapes: {e['ms'] * 1e3:.2f} us, plain "
-              f"{e['plain_ms'] * 1e3:.2f} us, bound {e['bound_ms'] * 1e3:.2f} us "
-              f"({e['bound_by']}), library {lib}, max abs err {e['max_abs_err']:.3g}  [{card}]",
-              flush=True)
+        dev_t = "-" if e["device_ms"] is None else f"{e['device_ms'] * 1e3:.2f} us"
+        print(f"kernel {e['name']} at {e['path']}'s shapes: {e['ms'] * 1e3:.2f} us (kernel alone "
+              f"{dev_t}, profiler), plain {e['plain_ms'] * 1e3:.2f} us, bound "
+              f"{e['bound_ms'] * 1e3:.2f} us ({e['bound_by']}), library {lib}, max abs err "
+              f"{e['max_abs_err']:.3g}  [{card}]", flush=True)
 
     cfg = llama3_8b.config()
     ecfg = EngineConfig(group_size=4, n_select=100, rank=64, reuse_capacity=160,

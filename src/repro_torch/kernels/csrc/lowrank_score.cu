@@ -7,92 +7,180 @@
 //   score[b, n] = sum_h q_lr[b, h, :] . k_lr[b, n, :]   (masked to -1e30 at n >= valid[b])
 //   out[b, g]   = max over the G tokens of group g      (ragged last group allowed)
 //
-// The head sum is folded first, sum_h (q_h . k) = (sum_h q_h) . k, so each
-// block stages q_lr[b] once, reduces it to one rank-r vector in shared
-// memory, and the kernel becomes a GEMV over K_lr.  It is bound by the bytes
-// of K_lr it reads: 2 flops per 4-byte element, far below the H100's
-// balance point.  What the design does about that:
-//   * one warp scores one group; for each token the 32 lanes read the token's
-//     r floats side by side (one 256-byte coalesced row at r = 64) and
-//     reduce with shuffles, so every byte of K_lr is read once, coalesced;
-//   * groups wholly past valid[b] are written as -1e30 without reading K_lr,
-//     so the bytes moved follow the valid tokens, not the cache capacity;
-//   * the ragged tail (N not a multiple of G or of the tile) is
-//     bounds-checked here, so the caller pads nothing.
+// The head sum is folded first, sum_h (q_h . k) = (sum_h q_h) . k, which
+// turns the kernel into a GEMV over K_lr.  It is bound by the bytes of K_lr
+// it reads: 2 flops per 4-byte element, far below the H100's balance point.
+// At the decode path's sizes (about 1.6 MB) the time is latency: what counts
+// is how many round trips to device memory lie in series, so the design
+// puts every load of a block in flight at once:
+//
+// * Four lanes per token, each holding up to 16 float4 (64 floats) of its
+//   row in registers: every thread starts all its row loads before any
+//   arithmetic, and before the block folds the head sum, so the K_lr loads
+//   and the q_lr loads overlap in one trip.  A block of 256 threads scores
+//   64 tokens (16 groups of 4) and a row of 4096 tokens takes 64 blocks.
+//   Ranks that are not a multiple of 4 take a scalar path with the same
+//   layout.
+// * The head sum is folded by all 256 threads: each sums every
+//   (256 / r)-th head of one column with independent loads, and the
+//   partial sums meet in shared memory.
+// * The four lanes of a token reduce with two shuffles; the group max is
+//   read from the block's scores in shared memory, so any G works (a group
+//   longer than 64 tokens is scored in several passes, each thread keeping
+//   a running max of its token slot).
+// * Blocks whose groups all lie past valid[b] write -1e30 without reading
+//   K_lr or q_lr, so the bytes moved follow the valid tokens, not the cache
+//   capacity; the ragged tail (N not a multiple of G) is bounds-checked
+//   here, so the caller pads nothing.
 // The folded sum rounds differently from the reference's per-head sum; the
 // wrapper's plain version is held to it at 1e-5 of the row's score scale.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kWarps = 8;           // warps per block
-constexpr int kGroupsPerWarp = 4;   // groups each warp scores
-constexpr int kMaxRank = 256;       // shared q-sum capacity (floats)
+constexpr int kThreads = 256;
+constexpr int kLanes = 4;                      // lanes per token
+constexpr int kTokens = kThreads / kLanes;     // tokens per pass
+constexpr int kMaxRank = 256;                  // 4 lanes x 64 floats
 constexpr float kNeg = -1e30f;
+constexpr unsigned kAll = 0xffffffffu;
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Vec: float4 units (r % 4 == 0), 16 per lane; scalar: float units, 64 per lane.
+template <bool Vec>
+struct Row {
+  using T = typename std::conditional<Vec, float4, float>::type;
+  static constexpr int kUnits = Vec ? 16 : 64;
+  T x[kUnits];
+
+  // this lane's units of token row `row` (units sub, sub + 4, ...)
+  __device__ __forceinline__ void load(const float* row, int sub, int units, bool pred) {
+    const T* p = reinterpret_cast<const T*>(row);
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) {
+      const int u = sub + kLanes * i;
+      x[i] = pred && u < units ? __ldg(p + u) : T{};
+    }
+  }
+
+  __device__ __forceinline__ float dot(const float* qsum, int sub, int units) const {
+    const T* qv = reinterpret_cast<const T*>(qsum);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) {
+      const int u = sub + kLanes * i;
+      if (u < units) s += mul(qv[u], x[i]);
+    }
+    return s;
+  }
+
+  __device__ __forceinline__ static float mul(const float4& a, const float4& b) {
+    return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  }
+  __device__ __forceinline__ static float mul(float a, float b) { return a * b; }
+};
+
+template <bool Vec>
+__global__ void __launch_bounds__(kThreads)
 lowrank_group_scores_kernel(const float* __restrict__ q_lr,     // [B, H, r]
                             const float* __restrict__ k_lr,     // [B, N, r]
                             const int32_t* __restrict__ valid,  // [B]
                             float* __restrict__ out,            // [B, n_groups]
-                            int H, int N, int r, int G, int n_groups) {
-  __shared__ float qsum[kMaxRank];
-  const int b = blockIdx.y;
+                            int H, int N, int r, int G, int n_groups, int gpb) {
+  __shared__ __align__(16) float qsum[kMaxRank];
+  __shared__ float part[kThreads];
+  __shared__ float sc[kTokens];
 
-  // fold the head sum into one rank-r query
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int g0 = blockIdx.x * gpb;
+  const int ng = min(gpb, n_groups - g0);      // groups of this block
+  const int vl = min(valid[b], N);
+  float* ob = out + (size_t)b * n_groups + g0;
+  const long long t_first = (long long)g0 * G;
+  if (t_first >= vl) {                         // every group past valid[b]: no reads
+    for (int j = tid; j < ng; j += kThreads) ob[j] = kNeg;
+    return;
+  }
+
+  const int units = Vec ? r / 4 : r;
+  const int tok = tid / kLanes, sub = tid - tok * kLanes;
+  const int span = ng * G;                     // the block's tokens (some may be masked)
+  const float* kb = k_lr + (size_t)b * N * r;
+
+  // first pass's rows: in flight before the fold, so the two trips overlap
+  Row<Vec> row;
+  int t = (int)t_first + tok;
+  bool live = tok < span && t < vl;
+  row.load(kb + (size_t)t * r, sub, units, live);
+
+  // fold the head sum: (256 / r) threads per column, independent loads
   const float* qb = q_lr + (size_t)b * H * r;
-  for (int c = threadIdx.x; c < r; c += blockDim.x) {
+  const int per = kThreads / max(r, 1);       // r <= 256
+  if (tid < per * r) {
+    const int c = tid % r;
     float s = 0.f;
-    for (int h = 0; h < H; ++h) s += qb[(size_t)h * r + c];
-    qsum[c] = s;
+#pragma unroll 8
+    for (int h = tid / r; h < H; h += per) s += __ldg(qb + (size_t)h * r + c);
+    part[tid] = s;
+  }
+  __syncthreads();
+  if (tid < r) {
+    float s = 0.f;
+    for (int j = 0; j < per; ++j) s += part[j * r + tid];
+    qsum[tid] = s;
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int vl = valid[b];
-  if (vl > N) vl = N;
-  const float* kb = k_lr + (size_t)b * N * r;
-  const int g0 = (blockIdx.x * kWarps + warp) * kGroupsPerWarp;
+  float best = kNeg;
+  for (int pass = 0;;) {
+    float s = row.dot(qsum, sub, units);
+    s += __shfl_xor_sync(kAll, s, 1);
+    s += __shfl_xor_sync(kAll, s, 2);
+    if (live) best = fmaxf(best, s);
+    if (++pass * kTokens >= span) break;       // block-uniform
+    const int local = pass * kTokens + tok;
+    t = (int)t_first + local;
+    live = local < span && t < vl;
+    row.load(kb + (size_t)t * r, sub, units, live);
+  }
+  if (sub == 0) sc[tok] = best;
+  __syncthreads();
 
-  for (int gi = 0; gi < kGroupsPerWarp; ++gi) {
-    const int grp = g0 + gi;
-    if (grp >= n_groups) break;
+  // group max: one pass holds gpb whole groups; a longer group is one token
+  // slot per thread, each already the max over its passes
+  const int width = min(G, kTokens);
+  for (int j = tid; j < ng; j += kThreads) {
     float gmax = kNeg;
-    const int t0 = grp * G;
-    // tokens at or past vl (or past N) stay at -1e30: the loop bound is
-    // warp-uniform, so masked tokens are never read
-    for (int t = t0; t < t0 + G && t < vl; ++t) {
-      const float* row = kb + (size_t)t * r;
-      float part = 0.f;
-      for (int c = lane; c < r; c += 32) part += qsum[c] * row[c];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      gmax = fmaxf(gmax, part);
-    }
-    if (lane == 0) out[(size_t)b * n_groups + grp] = gmax;
+    for (int i = j * width; i < (j + 1) * width; ++i) gmax = fmaxf(gmax, sc[i]);
+    ob[j] = gmax;
   }
 }
 
 }  // namespace
 
 // q_lr [B,H,r] f32, k_lr [B,N,r] f32, valid [B] i32 -> out [B, ceil(N/G)] f32.
-// All contiguous on the current device; launches on `stream`.
-// Returns cudaGetLastError() as an int (0 = success).
+// All contiguous and 16-byte aligned on the current device; r <= 256, G >= 1.
+// Launches on `stream`.  Returns cudaGetLastError() as an int (0 = success).
 extern "C" int lowrank_group_scores_f32(const float* q_lr, const float* k_lr,
                                         const int32_t* valid, float* out,
                                         int B, int H, int N, int r, int G,
                                         void* stream) {
-  if (r > kMaxRank || G < 1) return (int)cudaErrorInvalidValue;
+  if (r < 0 || r > kMaxRank || G < 1) return (int)cudaErrorInvalidValue;
   const int n_groups = (N + G - 1) / G;
   if (B > 0 && n_groups > 0) {
-    const int per_block = kWarps * kGroupsPerWarp;
-    dim3 grid((n_groups + per_block - 1) / per_block, B);
-    lowrank_group_scores_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-        q_lr, k_lr, valid, out, H, N, r, G, n_groups);
+    const int gpb = G <= kTokens ? kTokens / G : 1;   // groups per block
+    dim3 grid((n_groups + gpb - 1) / gpb, B);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (r % 4 == 0)
+      lowrank_group_scores_kernel<true><<<grid, kThreads, 0, st>>>(
+          q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb);
+    else
+      lowrank_group_scores_kernel<false><<<grid, kThreads, 0, st>>>(
+          q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb);
   }
   return (int)cudaGetLastError();
 }

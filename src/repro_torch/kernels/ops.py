@@ -12,7 +12,9 @@ Each wrapper picks by the device of the tensors it is given:
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain
 integer, incremented once per launch and nowhere else), so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel.  Kernel B's one launch runs
+both of its passes (each block's split, then the combine by the last block
+of each head group), so a call counts once.
 """
 
 from __future__ import annotations
@@ -128,11 +130,39 @@ def gather_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, h, d).to(q.dtype)
 
 
+SPLIT_TOKENS = 32     # kernel B's tokens per split (``kSplit`` in gather_attention.cu)
+# kernel B's per-(row, KV head) counters, int32 zeros, one buffer per
+# (device, stream): the kernel's last block of each head group sets its
+# counter back to 0, so only calls on one stream may share a buffer
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _split_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get((dev.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[dev.index, stream] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return buf
+
+
+def gather_attention_splits(s: int) -> int:
+    """Kernel B's number of token splits for ``S`` tokens: ``ceil(S / 32)``.
+    The C entry point refuses any other count."""
+    return -(-s // SPLIT_TOKENS)
+
+
 def gather_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """One-token decode attention: ``q [B,H,d]``, ``k/v [B,S,H_kv,d]``
     (token-major, as the KV manager gathers them), ``mask [B,S]`` bool →
-    ``[B,H,d]``."""
+    ``[B,H,d]``.
+
+    On a CUDA tensor it is a split-S flash-decode in one kernel launch: each
+    block writes its split's partials ``(m, l, acc)`` into scratch allocated
+    here (``[B,H,n_split,d]`` and ``[B,H,n_split,2]``, ``n_split =
+    gather_attention_splits(S)``), and the last block of each (row, KV head)
+    to finish, found with an integer counter, merges them in split order
+    and writes the output.  The call counts once in
+    ``gather_attention.launches``."""
     if q.device.type == "cpu":
         return gather_attention_plain(q, k, v, mask)
     name = "gather_attention"
@@ -144,13 +174,19 @@ def gather_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, s, hk, d) or v.shape != k.shape or mask.shape != (b, s):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, mask {tuple(mask.shape)} disagree")
-    if h % hk or h // hk > 8 or d % 4 or d > 128:
+    if h % hk or h // hk > 8 or d % 4 or d > 128 or s < 1:
         raise ValueError(f"{name}: needs H % H_kv == 0, H / H_kv <= 8, "
-                         f"head_dim % 4 == 0 and head_dim <= 128")
+                         f"head_dim % 4 == 0, head_dim <= 128 and S >= 1")
+    n_split = gather_attention_splits(s)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    fn = _fn("gather_attention", "gather_attention_f32", [_P] * 5 + [_I] * 5 + [_P])
+    pacc = torch.empty((b, h, n_split, d), dtype=torch.float32, device=dev)
+    pml = torch.empty((b, h, n_split, 2), dtype=torch.float32, device=dev)
+    counter = _split_counters(dev, stream, b * hk)
+    fn = _fn("gather_attention", "gather_attention_f32", [_P] * 8 + [_I] * 6 + [_P])
     _launch(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            b, h, hk, s, d, torch.cuda.current_stream(dev).cuda_stream)
+            pacc.data_ptr(), pml.data_ptr(), counter.data_ptr(), b, h, hk, s, d, n_split,
+            stream)
     gather_attention.launches += 1
     return out
 

@@ -25,6 +25,14 @@ from repro_torch.kernels import ops
 
 SCORE_SHAPES = [(1, 4, 16, 64, 4), (2, 8, 32, 512, 4), (3, 16, 64, 1000, 4),
                 (1, 4, 16, 130, 8), (2, 32, 8, 256, 16)]
+# kernel A's edges: r = 256, r not a multiple of 4 (scalar path), G = 1, a
+# group longer than one 64-token pass
+SCORE_EDGES = [(2, 8, 256, 600, 4), (2, 4, 30, 300, 4), (2, 4, 3, 77, 5),
+               (2, 16, 64, 1000, 1), (1, 4, 16, 1000, 100)]
+# kernel B's edges: S = 1, one token past a 32-token split, many splits;
+# rep = 8 at d = 128, 32 and 64, rep = 3, rep = 1
+ATTN_EDGES = [(2, 8, 8, 64, 1), (2, 8, 1, 128, 33), (3, 16, 2, 32, 4101),
+              (3, 8, 1, 64, 405), (2, 6, 2, 32, 97), (2, 32, 32, 64, 65)]
 
 
 @pytest.fixture
@@ -78,13 +86,31 @@ class TestCudaKernels:
     def test_lowrank_group_scores(self, cuda_device, b, h, r, n, g):
         q, k, vl = (torch.from_numpy(a).to(cuda_device) for a in _score_inputs(4, b, h, r, n))
         vl[0] = 0
+        self._hold_scores(q, k, vl, g)
+
+    def test_lowrank_group_scores_edges(self, cuda_device):
+        """Every edge shape in one case (the card-only cases stay few)."""
+        for b, h, r, n, g in SCORE_EDGES:
+            q, k, vl = (torch.from_numpy(a).to(cuda_device) for a in _score_inputs(4, b, h, r, n))
+            vl[0] = 0
+            self._hold_scores(q, k, vl, g)
+        for r in (64, 30):                       # valid_len past N, vector and scalar paths
+            q, k, _ = (torch.from_numpy(a).to(cuda_device) for a in _score_inputs(8, 2, 8, r, 130))
+            vl = torch.tensor([5000, 131], dtype=torch.int32, device=cuda_device)
+            got = self._hold_scores(q, k, vl, 4)
+            assert float(got.min()) > -1e29, r   # every group has a valid token
+
+    @staticmethod
+    def _hold_scores(q, k, vl, g):
         got = ops.lowrank_group_scores(q, k, vl, group_size=g)
         want = ops.lowrank_group_scores_plain(q, k, vl, group_size=g)
         masked = want <= -1e29
-        assert torch.equal(got[masked], want[masked])
+        shape = (*q.shape, k.shape[1], g)
+        assert torch.equal(got[masked], want[masked]), shape
         # folded head sum: 1e-5 of the row's score scale
         scale = want.masked_fill(masked, 0).abs().amax(1, keepdim=True).clamp_min(1)
-        assert float(((got - want).abs() / scale).masked_fill(masked, 0).max()) <= 1e-5
+        assert float(((got - want).abs() / scale).masked_fill(masked, 0).max()) <= 1e-5, shape
+        return got
 
     @pytest.mark.parametrize("b,h,hk,d,s", [(2, 8, 2, 64, 300), (2, 16, 8, 128, 513),
                                             (4, 32, 8, 128, 405), (4, 32, 32, 64, 405),
@@ -99,6 +125,45 @@ class TestCudaKernels:
         got = ops.gather_attention(q, k, v, mask)
         want = ops.gather_attention_plain(q, k, v, mask)
         assert float((got - want).abs().max()) <= 1e-5
+
+    def test_gather_attention_split_edges(self, cuda_device):
+        """Every edge shape of the split design in one case (the card-only
+        cases stay few)."""
+        gen = torch.Generator(device=cuda_device).manual_seed(9)
+        for b, h, hk, d, s in ATTN_EDGES:
+            q = torch.randn((b, h, d), generator=gen, device=cuda_device)
+            k = torch.randn((b, s, hk, d), generator=gen, device=cuda_device)
+            v = torch.randn((b, s, hk, d), generator=gen, device=cuda_device)
+            mask = torch.rand((b, s), generator=gen, device=cuda_device) > 0.3
+            mask[0, 32:64] = False               # a fully masked split in mid-row
+            mask[0, -1] = True
+            mask[-1] = False                     # a fully masked row
+            k[~mask] = 1e4                       # stale finite data under the mask
+            before = ops.gather_attention.launches
+            got = ops.gather_attention(q, k, v, mask)
+            assert ops.gather_attention.launches == before + 1   # one launch, one count
+            want = ops.gather_attention_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            shape = (b, h, hk, d, s)
+            assert bool(torch.isfinite(got).all()), shape
+            assert not bool(got[-1].any()), shape
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= 1e-5 * scale, shape
+
+    def test_gather_attention_is_deterministic_and_resets_its_counters(self, cuda_device):
+        """The last block of each head group combines in split order and sets
+        its counter back to 0: repeated calls give the same bits."""
+        gen = torch.Generator(device=cuda_device).manual_seed(10)
+        q = torch.randn((4, 32, 128), generator=gen, device=cuda_device)
+        k = torch.randn((4, 405, 8, 128), generator=gen, device=cuda_device)
+        v = torch.randn((4, 405, 8, 128), generator=gen, device=cuda_device)
+        mask = torch.rand((4, 405), generator=gen, device=cuda_device) > 0.2
+        first = ops.gather_attention(q, k, v, mask)
+        for _ in range(5):
+            assert torch.equal(ops.gather_attention(q, k, v, mask), first)
+        torch.cuda.synchronize()
+        stream = torch.cuda.current_stream(cuda_device).cuda_stream
+        assert not bool(ops._COUNTERS[cuda_device.index or 0, stream].any())
 
     @pytest.mark.parametrize("shape", SSD_SHAPES,
                              ids=lambda d: "-".join(f"{k}{v}" for k, v in d.items()))
