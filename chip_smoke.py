@@ -5,13 +5,15 @@
 
 1. prints the card's name and power limit, builds every CUDA kernel from
    ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a (build seconds
-   and the compiler's register/shared-memory report);
+   and, per compiled kernel, ptxas's registers, static shared memory,
+   stack and spills), and kernel C's dynamic shared memory, blocks per SM
+   and waves at the Zamba2 path's shapes;
 2. holds each kernel against its plain PyTorch version on the card, at
-   each main path's shapes and at ragged and edge shapes, and times the
-   kernel, the plain version and (where one exists) one library call with
-   CUDA events at each path's shapes, and the kernel alone with
-   ``torch.profiler``; prints the events' floor (one launch of a trivial
-   fill);
+   each main path's shapes and at ragged and edge shapes (kernel C also
+   bitwise equal over 5 repeated calls), and times the kernel, the plain
+   version and (where one exists) one library call with CUDA events at
+   each path's shapes, and the kernel alone with ``torch.profiler``;
+   prints the events' floor (one launch of a trivial fill);
 3. drives the first main path: a ``ServeSession`` at Llama-3.1-8B width (all
    32 layers, fp32 random weights from seed 0) answering 6 greedy requests
    of 1024-2048 prompt tokens and 32 new tokens each over 4 slots, and
@@ -25,8 +27,11 @@
    and checks the tokens' shape, finite logits, that only the 6 attention
    layers own disk KV, that kernel C ran once per Mamba2 layer in the one
    prefill and kernels A and B once per attention layer per decode step;
-   then generates at 12 blocks with ``async_io`` and ``device_resident``
-   each on and off and requires bit-identical tokens;
+   prefills the same prompts once more under ``torch.profiler`` and prints
+   where that prefill's time goes (the top device operations, kernel C
+   among them, the device's busy share and the host's time alone); then
+   generates at 12 blocks with ``async_io`` and ``device_resident`` each
+   on and off and requires bit-identical tokens;
 5. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
    path that runs it (``path``): its time, bound, plain and library times
    at that path's shapes, and ``launches`` in that path's main run, counted
@@ -42,6 +47,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -56,7 +62,8 @@ FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores (publish
 SCORE_RTOL = 1e-5              # kernel A: |err| <= 1e-5 x the row's score scale
 ATTN_TOL = 1e-5                # kernel B: |err| <= 1e-5 x max(1, |output|max)
 # kernel C sums up to Q = 128 decayed products in another order than its
-# plain version, with expf for torch.exp: |err| <= 1e-4 x max(1, |y|max)
+# plain version, on the tensor cores with split operands (each product term
+# to ~2^-18 of its size) and a fast exp: |err| <= 1e-4 x max(1, |y|max)
 SSD_TOL = 1e-4
 LLAMA, ZAMBA = "llama3-8b", "zamba2-1.2b"      # the two main paths
 # each kernel's source and the TPU kernel it replaces
@@ -114,6 +121,29 @@ def profiled_ms(fn, flush: torch.Tensor, kernel: str, reps: int = 20) -> float |
         torch.cuda.synchronize()
     total_us = sum(ev.device_time_total for ev in prof.key_averages() if kernel in ev.key)
     return total_us / reps / 1e3 if total_us else None
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per kernel compiled in nvcc's ``-Xptxas -v`` log: its
+    registers, static shared memory, stack frame and spills."""
+    keys = {"registers": r"Used (\d+) registers", "smem": r"(\d+) bytes smem",
+            "stack": r"(\d+) bytes stack frame", "spill stores": r"(\d+) bytes spill stores",
+            "spill loads": r"(\d+) bytes spill loads"}
+    kernels: list[tuple[str, dict]] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", entry.group(1))
+            kernels.append((f"{name.group(1)}<{name.group(2)}>" if name and name.group(2) else
+                            name.group(1) if name else entry.group(1), {}))
+        elif kernels:
+            for key, pat in keys.items():
+                hit = re.search(pat, line)
+                if hit:
+                    kernels[-1][1][key] = int(hit.group(1))
+    return [f"{name}: {info.get('registers', '?')} registers, {info.get('smem', 0)} B static "
+            f"shared memory, {info.get('stack', 0)} B stack, {info.get('spill stores', 0)} B "
+            f"spill stores, {info.get('spill loads', 0)} B spill loads" for name, info in kernels]
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -299,9 +329,15 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
                   dict(b=2, nc=3, q=64, h=4, p=16, n=16),
                   dict(b=1, nc=2, q=128, h=64, p=64, n=64, steep=True),
                   dict(b=2, nc=2, q=128, h=8, p=64, n=64, pad=37),
-                  dict(b=1, nc=1, q=64, h=4, p=16, n=16, steep=True, pad=11)]:
+                  dict(b=1, nc=1, q=64, h=4, p=16, n=16, steep=True, pad=11),
+                  dict(b=3, nc=2, q=1, h=9, p=32, n=16),              # Q = 1, H % 4 != 0
+                  dict(b=2, nc=2, q=128, h=17, p=64, n=12)]:          # N = 12: a part chunk
         err_c = max(err_c, check_ssd(ops, dev, gen, shape))
     args = ssd_inputs(gen, dev, **path)
+    first = ops.ssd_chunk(*args)
+    check(all(torch.equal(ops.ssd_chunk(*args), first) for _ in range(5)),
+          "kernel C: repeated calls at the Zamba2 path's shapes differ in their bits")
+    del first
     bc, q, h, p, n = path["b"] * path["nc"], path["q"], path["h"], path["p"], path["n"]
     tri = q * (q + 1) // 2                    # (i, j) pairs on and below the diagonal
     bound_c, by_c = bound_ms(4 * sum(a.numel() for a in args) + 4 * bc * q * h * p,
@@ -327,7 +363,7 @@ def hybrid_phases(run_hybrid_path, cfg, ecfg, dev, entries, card) -> dict:
     n_mamba, n_kv = cfg.blocks.count("mamba2"), cfg.blocks.count("shared_attn")
     t0 = time.perf_counter()
     run = run_hybrid_path(cfg, device=dev, engine_cfg=ecfg, batch=4, prompt_len=2048,
-                          max_new=32, seed=0)
+                          max_new=32, seed=0, profile_prefill=True)
     check(run["n_layers"] == 38 and (n_mamba, n_kv) == (32, 6),
           f"hybrid path ran {run['n_layers']} blocks ({n_mamba} Mamba2, {n_kv} attention)")
     check(run["tokens"].shape == (4, 32), f"hybrid tokens {run['tokens'].shape} != (4, 32)")
@@ -361,6 +397,18 @@ def hybrid_phases(run_hybrid_path, cfg, ecfg, dev, entries, card) -> dict:
           f" + kernels A, B {kern_ms:.2f} ms + rest {med - wait_ms - kern_ms:.1f} ms; prefill "
           f"{run['prefill_seconds'] * 1e3:.1f} ms holds kernel C {ssd_ms:.2f} ms  [{card}]",
           flush=True)
+    # where a prefill's time goes: the same prompts once more under torch.profiler
+    prof = run["prefill_profile"]
+    check(prof["device_busy_ms"] > 0, "torch.profiler recorded no device time in the prefill")
+    ops_ = prof["ops"]
+    shown = ops_[:8] + [op for op in ops_[8:] if "ssd_chunk_kernel" in op[0]]
+    print(f"hybrid prefill profile: a second prefill of the same prompts under torch.profiler: "
+          f"window {prof['window_ms']:.1f} ms (unprofiled {run['prefill_seconds'] * 1e3:.1f} ms); "
+          f"device busy {prof['device_busy_ms']:.1f} ms ({100 * prof['device_busy_share']:.1f} %), "
+          f"host alone {prof['host_only_ms']:.1f} ms; {len(ops_)} device operations, "
+          f"{sum(ms for _, ms, _ in ops_):.1f} ms in all  [{card}]")
+    print("hybrid prefill profile: top device operations by total time: " + "; ".join(
+        f"{name[:80]} {ms:.2f} ms x{n}" for name, ms, n in shown) + f"  [{card}]", flush=True)
     del run
     torch.cuda.empty_cache()
 
@@ -404,9 +452,15 @@ def main() -> None:
     per_source = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items())
     print(f"build: {time.perf_counter() - t0:.2f} s ({per_source})", flush=True)
     for name, rep in built.items():
-        for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(rep["log"]):
+            print(f"  ptxas {name}: {line}")
+    occ = ops.ssd_chunk_occupancy(64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = 4 * 16 * -(-64 // occ["heads_per_block"])
+    print(f"kernel ssd_chunk at {ZAMBA}'s shapes (B*nc = 64, H = 64, P = 64): "
+          f"{occ['smem_bytes']} B dynamic shared memory a block, {occ['blocks_per_sm']} blocks "
+          f"an SM, {blocks} blocks of {occ['heads_per_block']} heads = "
+          f"{blocks / (sms * occ['blocks_per_sm']):.2f} waves on {sms} SMs", flush=True)
 
     entries = kernel_checks(ops, select_groups, dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)

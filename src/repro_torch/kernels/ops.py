@@ -258,3 +258,14 @@ def ssd_chunk(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Te
 
 
 ssd_chunk.launches = 0
+
+
+def ssd_chunk_occupancy(p: int) -> dict:
+    """Kernel C on the current card at head width ``p``: ``blocks_per_sm``
+    (what its shared memory and registers allow at once), ``heads_per_block``
+    (the grid is ``(B * nc, ceil(H / heads_per_block))``) and
+    ``smem_bytes``, its dynamic shared memory per block."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    fn = _fn("ssd_chunk", "ssd_chunk_occupancy", [_I, _P, _P, _P])
+    _launch(fn, p, *(ctypes.addressof(v) for v in vals))
+    return dict(zip(("blocks_per_sm", "heads_per_block", "smem_bytes"), (v.value for v in vals)))

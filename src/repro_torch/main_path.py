@@ -108,6 +108,45 @@ def _peak(dev: torch.device):
     return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
 
 
+def _profiled_prefill(engine: KVSwapEngine, prompts: np.ndarray, dev: torch.device) -> dict:
+    """One more ``engine.prefill(prompts)`` under ``torch.profiler``: the
+    window's host wall time, the device operations as ``(name, ms, calls)``
+    from the largest total down (``ops``), the time the device was busy (the
+    union of its operations' intervals) and the rest of the window, when
+    the device did nothing and the host worked alone.  Without a card the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    _sync(dev)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine.prefill(prompts)
+        _sync(dev)
+        window = time.perf_counter() - t0
+    by_name: dict[str, list] = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end          # microseconds
+        rec = by_name.setdefault(ev.name, [0.0, 0])
+        rec[0] += end - start
+        rec[1] += 1
+        spans.append((start, end))
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy_ms = busy / 1e3
+    return {"window_ms": window * 1e3, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (window * 1e3),
+            "host_only_ms": window * 1e3 - busy_ms,
+            "ops": sorted(((name, us / 1e3, n) for name, (us, n) in by_name.items()),
+                          key=lambda r: -r[1])}
+
+
 def run_main_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
                   engine_cfg: EngineConfig | None = None, slots: int = 4,
                   n_requests: int = 6, prompt_len: tuple[int, int] = (1024, 2048),
@@ -163,7 +202,8 @@ def run_main_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
 
 def run_hybrid_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
                     engine_cfg: EngineConfig | None = None, batch: int = 4,
-                    prompt_len: int = 2048, max_new: int = 32, seed: int = 0) -> dict:
+                    prompt_len: int = 2048, max_new: int = 32, seed: int = 0,
+                    profile_prefill: bool = False) -> dict:
     """Generate ``max_new`` greedy tokens for ``batch`` seeded prompts of
     ``prompt_len`` tokens through ``KVSwapEngine.generate``.
 
@@ -171,7 +211,9 @@ def run_hybrid_path(cfg: ModelConfig, *, device=None, n_layers: int | None = Non
     config's).  The adapter is fitted from the first KV layer's K on one
     calibration prompt, after the blocks before that layer.  Every
     kernel's launch count is set to 0 just before ``generate`` and read
-    just after.
+    just after.  ``profile_prefill`` then prefills the same prompts once
+    more under ``torch.profiler`` (``prefill_profile`` in the result: see
+    :func:`_profiled_prefill`); the counts and times above exclude it.
     """
     dev = resolve(device)
     if n_layers is not None:
@@ -191,6 +233,8 @@ def run_hybrid_path(cfg: ModelConfig, *, device=None, n_layers: int | None = Non
         io_wait = [s.io_wait_seconds for s in engine.step_log]
         n_store_layers = engine.store.n_layers
         n_states = len(engine.states)
+        peak = _peak(dev)
+        profiled = _profiled_prefill(engine, prompts, dev) if profile_prefill else None
     return {
         "tokens": tokens,
         "n_layers": cfg.n_layers,
@@ -205,5 +249,6 @@ def run_hybrid_path(cfg: ModelConfig, *, device=None, n_layers: int | None = Non
         "prefill_seconds": rec["prefill"][0],
         "decode_step_wall_seconds": rec["decode_step"],
         "decode_step_io_wait_seconds": io_wait,
-        "peak_memory_bytes": _peak(dev),
+        "peak_memory_bytes": peak,
+        "prefill_profile": profiled,
     }

@@ -12,9 +12,11 @@ scores round differently from the plain per-head sum; they are held to
 1e-5 of the row's score scale, and masked groups must be exactly -1e30.
 Kernel B's outputs are convex combinations of O(1) values, held to 1e-5.
 Kernel C sums up to Q = 128 decayed products in another order than its
-plain version (and with ``expf`` for ``torch.exp``): held to 1e-4 of
-``max(1, |y|max)``, ten times inside the JAX package's own bound for its
-Pallas kernel (1e-3 absolute).
+plain version, on the tensor cores with each operand split into a TF32 and
+a bf16-rounded remainder (each product term held to ~2^-18 of its size;
+``tests/test_torch_ssd_split.py`` models the scheme) and with a fast
+``exp``: held to 1e-4 of ``max(1, |y|max)``, ten times inside the JAX
+package's own bound for its Pallas kernel (1e-3 absolute).
 """
 
 import numpy as np
@@ -75,7 +77,9 @@ SSD_SHAPES = [dict(b=4, nc=16, q=128, h=64, p=64, n=64),          # the main pat
               dict(b=2, nc=3, q=64, h=4, p=16, n=16),
               dict(b=1, nc=2, q=128, h=8, p=32, n=64, steep=True),
               dict(b=2, nc=2, q=128, h=9, p=64, n=64, pad=37),
-              dict(b=1, nc=1, q=100, h=3, p=8, n=128, steep=True, pad=5)]
+              dict(b=1, nc=1, q=100, h=3, p=8, n=128, steep=True, pad=5),
+              dict(b=3, nc=2, q=1, h=9, p=32, n=16),          # Q = 1
+              dict(b=2, nc=2, q=128, h=17, p=64, n=12)]       # N = 12: part of a 16-column chunk
 
 
 @pytest.mark.cuda
@@ -179,6 +183,15 @@ class TestCudaKernels:
             assert not bool(got[:, -1, shape["q"] - shape["pad"]:].any())
         scale = max(1.0, float(want.abs().max()))
         assert float((got - want).abs().max()) <= SSD_TOL * scale
+
+    def test_ssd_chunk_is_deterministic(self, cuda_device):
+        """A fixed order of accumulation and no atomics: repeated calls at
+        the Zamba2 path's shapes give the same bits."""
+        args = [torch.from_numpy(a).to(cuda_device)
+                for a in ssd_inputs(8, b=4, nc=16, q=128, h=64, p=64, n=64)]
+        first = ops.ssd_chunk(*args)
+        for _ in range(5):
+            assert torch.equal(ops.ssd_chunk(*args), first)
 
     def test_ssd_chunk_refuses_what_it_cannot_take(self, cuda_device):
         args = [torch.from_numpy(a).to(cuda_device)

@@ -337,3 +337,21 @@ def test_hybrid_path_on_cpu():
     # the CPU runs the plain versions: no kernel launch is counted
     assert run["launches"] == {"lowrank_group_scores": 0, "gather_attention": 0, "ssd_chunk": 0}
     np.testing.assert_array_equal(runs[True]["tokens"], runs[False]["tokens"])
+
+
+def test_hybrid_prefill_profile_on_cpu():
+    """The chip smoke run's profiled second prefill, rehearsed at a tiny
+    size: it runs after ``generate`` and its launch counts are read, so the
+    tokens, counts and first prefill are those of a run without it; on the
+    CPU the trace holds no device time, so the whole window is host work."""
+    cfg = dataclasses.replace(zamba2_1p2b.smoke_config(), n_layers=4,
+                              block_pattern=("mamba2", "shared_attn") * 2)
+    kw = dict(device="cpu", batch=2, prompt_len=37, max_new=4, engine_cfg=EngineConfig(**CFG))
+    plain = run_hybrid_path(cfg, **kw)
+    run = run_hybrid_path(cfg, profile_prefill=True, **kw)
+    assert plain["prefill_profile"] is None
+    np.testing.assert_array_equal(run["tokens"], plain["tokens"])
+    assert run["launches"] == plain["launches"] and run["logits_finite"]
+    prof = run["prefill_profile"]
+    assert prof["window_ms"] > 0 and prof["device_busy_ms"] == 0 and prof["ops"] == []
+    assert prof["host_only_ms"] == prof["window_ms"] and prof["device_busy_share"] == 0
