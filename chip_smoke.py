@@ -18,10 +18,34 @@
    32 layers, fp32 random weights from seed 0) answering 6 greedy requests
    of 1024-2048 prompt tokens and 32 new tokens each over 4 slots, and
    checks that every request completes, the logits stay finite, and kernels
-   A and B were launched once per layer per decode step; then serves the
-   same requests at 4 layers with ``async_io`` on and off and requires
-   bit-identical tokens;
-4. drives the second main path: Zamba2-1.2B at full width (all 38 blocks:
+   A and B were launched once per layer per decode step;
+4. drives the prefix path on the same weights: a ``ServeSession`` with a
+   prefix cache (32-token blocks, 2 GiB) answering 8 greedy requests whose
+   prompts share one 1536-token prefix, each with its own suffix of 256-512
+   tokens, 32 new tokens each over 4 slots: the first four admissions run
+   cold and publish at retirement, the last four must restore 1536 tokens;
+   prints each admission's wall with its cached and computed tokens, the
+   restore and publish bytes, the decode-step wall, tokens/s, peak memory
+   and the launches of kernels A and B (once per layer per decode step); a
+   control session without the cache serves the same requests, and each
+   request's tokens are compared with the control's; one more such prompt
+   is admitted at slot 0 of two fresh engines, cold and warm (the warm one
+   under ``torch.profiler``: where its time goes), and the last-position
+   logits must be bit-equal (then every request's tokens must equal the
+   control's) or within 1e-4 of their largest magnitude, with the first
+   operation of layer 0 whose bits differ printed;
+5. at 4 layers (full width, one set of weights): the main path's requests
+   with ``async_io`` on and off (bit-identical tokens); the warm tier
+   (``kv_bits=8``, 256 MiB) against the tier off (bit-identical tokens,
+   warm-served bytes above 0); transient read faults with retries
+   (bit-identical to the unfaulted run, retries above 0, no failed request,
+   no dead prefetch thread); grown bad extents at 35 % and at 1 % of writes
+   (the session drains, every request completes or fails, some fail at 35
+   %, some survive at 1 %, and survivors' tokens equal the unfaulted
+   run's);
+   and the prefix path with blocks corrupted at rest (quarantines above 0,
+   tokens equal to the control without cache or faults);
+6. drives the hybrid path: Zamba2-1.2B at full width (all 38 blocks:
    32 Mamba2, 6 shared attention; fp32 random weights from seed 0) through
    ``KVSwapEngine.generate`` for 4 prompts of 2048 tokens and 32 new tokens,
    and checks the tokens' shape, finite logits, that only the 6 attention
@@ -32,7 +56,7 @@
    among them, the device's busy share and the host's time alone); then
    generates at 12 blocks with ``async_io`` and ``device_resident`` each
    on and off and requires bit-identical tokens;
-5. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
+7. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
    path that runs it (``path``): its time, bound, plain and library times
    at that path's shapes, and ``launches`` in that path's main run, counted
    from 0 just before it; then, last, the ``{"ok": true, ...}`` line.
@@ -45,6 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -65,7 +90,8 @@ ATTN_TOL = 1e-5                # kernel B: |err| <= 1e-5 x max(1, |output|max)
 # plain version, on the tensor cores with split operands (each product term
 # to ~2^-18 of its size) and a fast exp: |err| <= 1e-4 x max(1, |y|max)
 SSD_TOL = 1e-4
-LLAMA, ZAMBA = "llama3-8b", "zamba2-1.2b"      # the two main paths
+LLAMA, ZAMBA = "llama3-8b", "zamba2-1.2b"      # the serving and hybrid paths
+PREFIX = "llama3-8b-prefix"                    # the serving path over the prefix cache
 # each kernel's source and the TPU kernel it replaces
 SOURCES = {"lowrank_group_scores": ("lowrank_score.cu", "src/repro/kernels/lowrank_score.py:23"),
            "gather_attention": ("gather_attention.cu", "src/repro/kernels/gather_attention.py:28"),
@@ -144,6 +170,13 @@ def ptxas_lines(log: str) -> list[str]:
     return [f"{name}: {info.get('registers', '?')} registers, {info.get('smem', 0)} B static "
             f"shared memory, {info.get('stack', 0)} B stack, {info.get('spill stores', 0)} B "
             f"spill stores, {info.get('spill loads', 0)} B spill loads" for name, info in kernels]
+
+
+def free_device() -> None:
+    """Return the memory of a finished phase to the card before the next one
+    (what the phase left in reference cycles is freed only by a collection)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -273,11 +306,13 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
                         "source": f"src/repro_torch/kernels/csrc/{SOURCES[name][0]}",
                         "replaces": SOURCES[name][1], "max_abs_err": err, **timed})
 
-    # kernel A: B=4, H=32, r=64, N=4096 (k_lr capacity), G=4, M=100 on both
-    # paths; valid lengths: the Llama path's prompts, the Zamba2 path's
-    # prompts of 2048 halfway through its 32 decode steps
+    # kernel A: B=4, H=32, r=64, N=4096 (k_lr capacity), G=4, M=100 on every
+    # path; valid lengths: the Llama path's prompts, the Zamba2 path's
+    # prompts of 2048 and the prefix path's first four prompts halfway
+    # through their 32 decode steps
     b, h, r, n, g = 4, 32, 64, 4096, 4
-    valid_a = {LLAMA: [1024, 1536, 2048, 1200], ZAMBA: [2064] * 4}
+    valid_a = {LLAMA: [1024, 1536, 2048, 1200], ZAMBA: [2064] * 4,
+               PREFIX: [1868, 2012, 1876, 1820]}
     err_a = 0.0
     for shape, vl in [((3, 16, 64, 1000, 4), [1000, 0, 100]),   # ragged N, empty row, masked tiles
                       ((2, 8, 32, 130, 8), [130, 7]),            # ragged last group
@@ -294,9 +329,10 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
         entry("lowrank_group_scores", path, max(err, err_a),
               time_scores(ops, dev, gen, flush, b, h, r, n, g, valid))
 
-    # kernel B: S = M*G + G + 1 = 405; Llama H=32, H_kv=8, d=128; Zamba2
-    # H = H_kv = 32, d=64 (one query head per KV head)
-    shape_b = {LLAMA: (4, 32, 8, 128, 405), ZAMBA: (4, 32, 32, 64, 405)}
+    # kernel B: S = M*G + G + 1 = 405; Llama H=32, H_kv=8, d=128 (both of its
+    # paths); Zamba2 H = H_kv = 32, d=64 (one query head per KV head)
+    shape_b = {LLAMA: (4, 32, 8, 128, 405), ZAMBA: (4, 32, 32, 64, 405),
+               PREFIX: (4, 32, 8, 128, 405)}
     err_b = 0.0
     for shape in [(2, 8, 2, 64, 37), (3, 16, 8, 128, 301), (1, 4, 4, 32, 1)]:
         bb, _, _, _, ss = shape
@@ -410,7 +446,7 @@ def hybrid_phases(run_hybrid_path, cfg, ecfg, dev, entries, card) -> dict:
     print("hybrid prefill profile: top device operations by total time: " + "; ".join(
         f"{name[:80]} {ms:.2f} ms x{n}" for name, ms, n in shown) + f"  [{card}]", flush=True)
     del run
-    torch.cuda.empty_cache()
+    free_device()
 
     toks = {}
     for aio, dr in ((False, False), (True, False), (False, True), (True, True)):
@@ -427,6 +463,163 @@ def hybrid_phases(run_hybrid_path, cfg, ecfg, dev, entries, card) -> dict:
     return launches
 
 
+def ms_list(walls) -> str:
+    return "[" + ", ".join(f"{w * 1e3:.1f}" for w in walls) + "]"
+
+
+def prefix_phases(run_prefix_path, cfg, ecfg, weights, dev, card) -> dict:
+    """The prefix path at full width on the main path's weights: 8 requests
+    over a shared 1536-token prefix through the prefix cache, the control
+    session without it, and the warm-cold comparison; returns the cache
+    session's launches."""
+    t0 = time.perf_counter()
+    run = run_prefix_path(cfg, device=dev, engine_cfg=ecfg, weights=weights)
+    n_layers, steps = run["n_layers"], run["decode_steps"]
+    check(n_layers == 32, f"prefix path ran {n_layers} layers")
+    check(all(o is not None and len(o) == 32 for o in run["outputs"]) and len(run["outputs"]) == 8,
+          "not every prefix-path request completed with 32 tokens")
+    check(run["logits_finite"], "non-finite logits on the prefix path")
+    adm = run["admissions"]
+    cached = [a["cached_tokens"] for a in adm]
+    check(len(adm) == 8 and cached[:4] == [0] * 4 and cached[4:] == [1536] * 4,
+          f"prefix path admissions cached {cached}, expected 4 x 0 then 4 x 1536")
+    launches = run["launches"]
+    for name, n in launches.items():
+        check(n == steps * n_layers,
+              f"prefix path: {name} launched {n} times, expected {steps} steps x {n_layers}")
+    cold, warm = adm[:4], adm[4:]
+    walls = run["decode_step_wall_seconds"]
+    print(f"prefix path: llama3-8b, {n_layers} layers, 8 requests (prompts {run['prompt_lens']}: "
+          f"a shared 1536-token prefix + 256-512 own tokens), {steps} decode steps, launches "
+          f"{launches}, total {time.perf_counter() - t0:.1f} s (control run and comparison "
+          f"included)  [{card}]")
+    print(f"prefix path: cold admissions ms {ms_list(a['wall_seconds'] for a in cold)} "
+          f"(computed {[a['computed_tokens'] for a in cold]}), median "
+          f"{statistics.median(a['wall_seconds'] for a in cold) * 1e3:.1f} ms; warm admissions "
+          f"ms {ms_list(a['wall_seconds'] for a in warm)} (cached 1536, computed "
+          f"{[a['computed_tokens'] for a in warm]}), median "
+          f"{statistics.median(a['wall_seconds'] for a in warm) * 1e3:.1f} ms; control (no "
+          f"cache) admissions of the last four ms "
+          f"{ms_list(a['wall_seconds'] for a in run['control_admissions'][4:])}  [{card}]")
+    print(f"prefix path: restore bytes per warm admission "
+          f"{[a['restore_bytes'] for a in warm]}; publish read {run['publish_read_bytes']} B "
+          f"from the engine's disk, wrote {run['publish_write_bytes']} B to the cache in "
+          f"{run['publish_seconds'] * 1e3:.1f} ms; {run['resident_blocks']} blocks resident; "
+          f"decode step wall median {statistics.median(walls) * 1e3:.1f} ms over {len(walls)} "
+          f"steps without admissions; {run['tokens_per_s']:.1f} tokens/s over the drain "
+          f"({run['wall_seconds']:.1f} s, admissions included); peak device memory "
+          f"{run['peak_memory_bytes'] / 2**30:.2f} GiB  [{card}]", flush=True)
+    wc = run["warm_cold"]
+    check(wc["cached_tokens"] == 1536, f"warm-cold comparison restored {wc['cached_tokens']} tokens")
+    print(f"prefix path: tokens equal to the control's (no cache), by request: "
+          f"{run['tokens_equal']}")
+    print(f"prefix path: warm vs cold admission of one more prompt at slot 0 of two fresh "
+          f"engines (1536 cached): last-position logits bit-equal {wc['bits_equal']}, max abs "
+          f"diff {wc['max_abs_diff']:.3g} (largest |logit| {wc['max_abs_logit']:.3g}); first "
+          f"operation whose bits differ, cold forward against warm (restored K, V): "
+          f"{wc['first_divergence'] or 'none'} (max abs diff "
+          f"{wc['first_divergence_diff']:.3g}); between the cold forwards of the prompt that "
+          f"published the prefix and of this one, on their shared rows: "
+          f"{wc['prefix_divergence'] or 'none'} (max abs diff {wc['prefix_divergence_diff']:.3g})"
+          f"  [{card}]", flush=True)
+    if wc["bits_equal"]:
+        check(all(run["tokens_equal"]), "warm logits are bit-equal to cold, yet the prefix "
+              f"path's tokens differ from the control's: {run['tokens_equal']}")
+    else:
+        check(wc["max_abs_diff"] <= 1e-4 * wc["max_abs_logit"],
+              f"warm logits differ from cold by {wc['max_abs_diff']:.3g}, more than 1e-4 of "
+              f"{wc['max_abs_logit']:.3g}")
+    prof = run["warm_profile"]
+    ops_, host = prof["ops"], prof["host_ms"]
+    dev_ms = {kind: sum(ms for name, ms, _ in ops_ if kind in name)
+              for kind in ("Memcpy HtoD", "Memcpy DtoH")}
+    rest = prof["window_ms"] - sum(host.values())
+    print(f"prefix path: the warm admission under torch.profiler: window "
+          f"{prof['window_ms']:.1f} ms; host time in the restore read (checksums and copy of "
+          f"{prof['restore_bytes']} B) {host['read_chain']:.1f} ms, uploads of the restored K, V "
+          f"{host['_upload']:.1f} ms, downloads of the computed K, V (each waiting for its "
+          f"layer) {host['_host']:.1f} ms, writes of the prompt's K, V to the engine's disk "
+          f"store {host['write_prefill_row']:.1f} ms, the rest {rest:.1f} ms; device busy "
+          f"{prof['device_busy_ms']:.1f} ms ({100 * prof['device_busy_share']:.1f} %), of which "
+          f"uploads {dev_ms['Memcpy HtoD']:.1f} ms and downloads {dev_ms['Memcpy DtoH']:.1f} ms"
+          f"  [{card}]")
+    print("prefix path: warm admission's top device operations by total time: " + "; ".join(
+        f"{name[:80]} {ms:.2f} ms x{n}" for name, ms, n in ops_[:8]) + f"  [{card}]", flush=True)
+    return launches
+
+
+def reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev) -> None:
+    """Bit-identity and fault checks at 4 layers (full width), on one set of
+    weights shared by every run."""
+    from repro_torch.faults import FaultPlan, FaultSpec
+
+    t0 = time.perf_counter()
+    weights = build_weights(cfg, device=dev, n_layers=4, rank=ecfg.rank)
+    main = functools.partial(run_main_path, cfg, device=dev, n_layers=4, weights=weights)
+    same = lambda a, b: all(x is not None and y is not None and x.shape == y.shape
+                            and (x == y).all() for x, y in zip(a, b))
+    runs = {}
+    for aio in (True, False):
+        run = main(engine_cfg=dataclasses.replace(ecfg, async_io=aio))
+        for name, n in run["launches"].items():
+            check(n == run["decode_steps"] * 4, f"4-layer run: {name} launched {n} times")
+        runs[aio] = run
+    base = runs[True]["outputs"]
+    check(all(math.prod(a.shape) == 32 for a in base) and same(base, runs[False]["outputs"]),
+          "4-layer tokens differ between async_io on and off")
+    print("4 layers: tokens bit-identical with async_io on and off", flush=True)
+
+    kv8 = dataclasses.replace(ecfg, kv_bits=8)
+    off = main(engine_cfg=kv8)
+    on = main(engine_cfg=dataclasses.replace(kv8, warm_budget_bytes=256 << 20))
+    warm_bytes = on["accountant"]["warm_bytes"]
+    check(same(off["outputs"], on["outputs"]), "4 layers, kv_bits=8: tokens differ with the "
+          "warm tier on and off")
+    check(warm_bytes > 0, "4 layers: the warm tier served no bytes, the check proved nothing")
+    print(f"4 layers, kv_bits=8: tokens bit-identical with the warm tier (256 MiB) on and off; "
+          f"warm-served {warm_bytes} B, disk reads {on['accountant']['read_bytes']} B against "
+          f"{off['accountant']['read_bytes']} B with the tier off", flush=True)
+
+    plan = FaultPlan(FaultSpec(seed=3, read_error_rate=0.05, torn_read_rate=0.02, error_burst=1))
+    faulted = main(engine_cfg=dataclasses.replace(ecfg, io_max_attempts=3), faults=plan)
+    st = faulted["stats"]
+    check(same(base, faulted["outputs"]), "4 layers: transient faults changed the tokens")
+    check(st["io_retries"] > 0 and st["failed_requests"] == 0 and faulted["prefetch_deaths"] == 0,
+          f"4 layers, transient faults: retries {st['io_retries']}, failed "
+          f"{st['failed_requests']}, prefetch deaths {faulted['prefetch_deaths']}")
+    print(f"4 layers, transient read faults (5 % errors, 2 % torn reads, bursts of 1, 3 "
+          f"attempts): tokens bit-identical to the unfaulted run; {st['io_retries']} retries, "
+          f"0 failed requests, 0 prefetch deaths; injected {plan.snapshot()}", flush=True)
+
+    # 35 % of writes growing a bad extent fails every request at these
+    # sizes; 1 % leaves survivors, whose tokens are then held to the
+    # unfaulted run's
+    for rate, need in ((0.35, "failed_requests"), (0.01, "completed_requests")):
+        bad = main(engine_cfg=ecfg, faults=FaultPlan(FaultSpec(seed=11, bad_extent_rate=rate)))
+        st = bad["stats"]
+        check(st["failed_requests"] + st["completed_requests"] == len(base) and st[need] > 0,
+              f"4 layers, bad extents at {rate}: {st['failed_requests']} failed + "
+              f"{st['completed_requests']} completed of {len(base)} requests")
+        check(all(o is None or (o == b).all() for o, b in zip(bad["outputs"], base)),
+              f"4 layers, bad extents at {rate}: a surviving request's tokens differ from the "
+              f"unfaulted run")
+        print(f"4 layers, grown bad extents ({100 * rate:g} % of writes): the session drained; "
+              f"{st['completed_requests']} completed with the unfaulted tokens, "
+              f"{st['failed_requests']} failed, {st['recovered_rows']} rows replayed", flush=True)
+
+    plan = FaultPlan(FaultSpec(seed=0, corrupt_block_rate=0.05))
+    px = run_prefix_path(cfg, device=dev, n_layers=4, engine_cfg=ecfg, weights=weights,
+                         cache_faults=plan, compare=False)
+    cs = px["cache_stats"]
+    check(cs["quarantined_blocks"] > 0, f"4 layers, corrupt blocks: nothing quarantined ({cs})")
+    check(all(px["tokens_equal"]), f"4 layers, corrupt blocks: tokens differ from the control "
+          f"without cache or faults: {px['tokens_equal']}")
+    print(f"4 layers, prefix path with blocks corrupted at rest (5 %): {cs['corrupt_blocks']} "
+          f"checksum failures, {cs['quarantined_blocks']} blocks quarantined, cached tokens "
+          f"{[a['cached_tokens'] for a in px['admissions']]}; tokens equal to the control's "
+          f"(no cache, no faults); 4-layer checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -436,7 +629,8 @@ def main() -> None:
         from repro_torch.core.engine import EngineConfig
         from repro_torch.core.predictor import select_groups
         from repro_torch.kernels import _build, ops
-        from repro_torch.main_path import run_hybrid_path, run_main_path
+        from repro_torch.main_path import (build_weights, run_hybrid_path, run_main_path,
+                                           run_prefix_path)
     except ImportError as exc:
         fail(f"the port is not next to this script ({exc})")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -480,7 +674,8 @@ def main() -> None:
     ecfg = EngineConfig(group_size=4, n_select=100, rank=64, reuse_capacity=160,
                         max_seq=4096, disk="nvme", device_resident=True, async_io=True)
     t0 = time.perf_counter()
-    main_run = run_main_path(cfg, device=dev, engine_cfg=ecfg)
+    weights = build_weights(cfg, device=dev, rank=ecfg.rank)
+    main_run = run_main_path(cfg, device=dev, engine_cfg=ecfg, weights=weights)
     n_layers = main_run["n_layers"]
     check(n_layers == 32, f"main path ran {n_layers} layers")
     check(all(len(o) == 32 for o in main_run["outputs"]) and len(main_run["outputs"]) == 6,
@@ -508,23 +703,14 @@ def main() -> None:
           f"wait on group reads {wait_ms:.1f} ms + kernels {kern_ms:.2f} ms + rest "
           f"{statistics.median(steps) * 1e3 - wait_ms - kern_ms:.1f} ms  [{card}]", flush=True)
     del main_run
-    torch.cuda.empty_cache()
+    prefix_launches = prefix_phases(run_prefix_path, cfg, ecfg, weights, dev, card)
+    del weights
+    free_device()
 
-    runs = {}
-    for aio in (True, False):
-        run = run_main_path(cfg, device=dev, n_layers=4,
-                            engine_cfg=dataclasses.replace(ecfg, async_io=aio))
-        for name, n in run["launches"].items():
-            check(n == run["decode_steps"] * 4, f"4-layer run: {name} launched {n} times")
-        runs[aio] = run["outputs"]
-    check(all(math.prod(a.shape) == 32 and (a == b).all() for a, b in zip(runs[True], runs[False])),
-          "4-layer tokens differ between async_io on and off")
-    print("4 layers: tokens bit-identical with async_io on and off", flush=True)
+    reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev)
+    free_device()
 
-    del runs
-    torch.cuda.empty_cache()
-
-    path_launches = {LLAMA: launches,
+    path_launches = {LLAMA: launches, PREFIX: prefix_launches,
                      ZAMBA: hybrid_phases(run_hybrid_path, zamba2_1p2b.config(), ecfg, dev,
                                           entries, card)}
     for e in entries:

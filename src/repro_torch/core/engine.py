@@ -24,14 +24,19 @@ Execution modes, as in the reference:
   control path with bit-identical tokens.
 
 Per-slot request lifecycle (continuous batching) follows the reference:
-:meth:`KVSwapEngine.admit_row` prefills one prompt into a free slot,
-:meth:`KVSwapEngine.retire_row` frees it, and inactive rows select no
-groups, read nothing and charge no modeled time.
+:meth:`KVSwapEngine.admit_row` prefills one prompt into a free slot
+(restoring a cached prefix when a :class:`~repro_torch.cache.PrefixCache`
+is handed in), :meth:`KVSwapEngine.retire_row` frees it, and inactive rows
+select no groups, read nothing and charge no modeled time.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-silently skipped: fault injection (``faults=``), the warm tier
-(``warm_budget_bytes > 0``), and the prefix cache (``prefill_cached``,
-``admit_row(cache=...)``, ``publish``).
+Orthogonally, as in the reference: ``warm_budget_bytes > 0`` puts a
+host-RAM warm tier (:mod:`repro_torch.tiers`) between the reuse buffers
+and the disk, ``faults=`` wraps the disk store in the fault-injecting
+:class:`~repro_torch.faults.FaultyDisk`, and :meth:`KVSwapEngine.publish` /
+:meth:`KVSwapEngine.prefill_cached` move prompt KV through a persistent
+prefix cache.  Warm prefill (restored prefix KV plus a chunked suffix
+prefill) computes cold prefill's operations row for row; see
+:meth:`KVSwapEngine.prefill_cached` for when their bits agree.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.cache.blocks import chain_blocks
 from repro_torch.core import hardware
 from repro_torch.core.adapter import ModelAdapter
 from repro_torch.core.lowrank import LowRankAdapter, compress_k, fit_adapter
@@ -52,9 +58,9 @@ from repro_torch.core.predictor import PredictorConfig
 from repro_torch.core.reuse_buffer import ReuseBuffer
 from repro_torch.core.rolling_buffer import RollingBuffer
 from repro_torch.device import resolve
-from repro_torch.faults.errors import StorageFault
+from repro_torch.faults.errors import CorruptBlockError, StorageFault
 from repro_torch.faults.retry import RetryPolicy
-from repro_torch.io import DoubleBuffer, PrefetchWorker, ReadScheduler
+from repro_torch.io import DoubleBuffer, PrefetchWorker, ReadRun, ReadScheduler
 from repro_torch.kernels.fused_predict import fused_predict
 from repro_torch.obs import NULL_OBS, PrefetchQualityMeter
 from repro_torch.utils import stats as stats_util
@@ -80,8 +86,12 @@ class EngineConfig:
     * ``max_seq`` — KV capacity in tokens (bounds the memmap file).
     * ``disk`` — which :class:`DiskSpec` prices modeled I/O
       ("nvme"/"ufs"/"emmc").
-    * ``warm_budget_bytes`` — host-RAM budget of the warm tier; only 0
-      (disabled) is ported so far, anything else raises.
+    * ``warm_budget_bytes`` — host-RAM byte budget for the quantized warm
+      tier (:mod:`repro_torch.tiers`) between the reuse buffer and disk: groups
+      evicted from the reuse buffer are kept as per-group-scaled int8 under
+      a global LRU budget and served back at memcpy+dequantize cost instead
+      of a disk re-read.  0 (default) disables the tier entirely — tokens
+      and ``StepStats`` are then byte-identical to an engine without it.
     * ``predict_from`` — "prev" scores layer *i* from layer *i−1*'s input
       (cross-layer similarity, §3.3), which is what makes prefetch
       overlappable; "self" predicts from the layer's own input (exact timing
@@ -232,10 +242,17 @@ def summarize_steps(steps: Sequence[StepStats]) -> dict:
     }
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; it comes with a later slice "
-        "of the port (see ROADMAP.md)")
+class PublishResult(int):
+    """Return of :meth:`KVSwapEngine.publish`: behaves as the plain block
+    count (``+=`` accounting in the serving layer keeps working), but also
+    carries ``heads`` — per published row, the deepest resident block id of
+    that row's hash chain (``None`` when nothing of the row's chain is
+    resident, e.g. a prompt shorter than one block)."""
+
+    def __new__(cls, published: int, heads: dict[int, str | None] | None = None):
+        self = super().__new__(cls, published)
+        self.heads = heads or {}
+        return self
 
 
 class KVSwapEngine:
@@ -255,10 +272,6 @@ class KVSwapEngine:
         faults=None,
         device=None,
     ):
-        if faults is not None:
-            raise _later_slice("fault injection (faults=)")
-        if cfg.warm_budget_bytes > 0:
-            raise _later_slice("the warm tier (warm_budget_bytes > 0)")
         self.device = resolve(device)
         self.model = model
         self.params = params
@@ -317,6 +330,14 @@ class KVSwapEngine:
             dtype=cfg.np_dtype, accountant=self.accountant,
             quant_bits=8 if cfg.kv_bits == 8 else 0,
         )
+        # fault injection: with a FaultPlan attached the disk tier is wrapped
+        # in the FaultyDisk shim; faults=None keeps the bare store, and the
+        # injection modules are never loaded
+        self.faults = faults
+        if faults is not None:
+            from repro_torch.faults import FaultyDisk
+
+            self.store = FaultyDisk(self.store, faults)
         self.reuse = [
             ReuseBuffer(batch=batch, capacity=cfg.reuse_capacity, group_size=g,
                         n_kv_heads=model.n_kv_heads, head_dim=model.head_dim,
@@ -329,12 +350,24 @@ class KVSwapEngine:
             for _ in range(n_kv_layers)
         ]
         self.scheduler = ReadScheduler(max_gap=cfg.coalesce_gap)
+        # host-RAM warm tier (victim cache) between reuse buffers and disk:
+        # one tier for the whole engine (warm_budget_bytes is a global
+        # budget across layers and rows); None when disabled, so the
+        # disabled path is the code without a tier
+        self.warm = None
+        if cfg.warm_budget_bytes > 0:
+            from repro_torch.tiers import WarmTier
+
+            self.warm = WarmTier(budget_bytes=cfg.warm_budget_bytes,
+                                 compute=self.compute_spec,
+                                 accountant=self.accountant, obs=self.obs)
+            self.store.warm = self.warm
         self._retry = RetryPolicy(max_attempts=cfg.io_max_attempts,
                                   backoff_base_s=cfg.io_backoff_s)
         self.managers = [
             KVCacheManager(store=self.store, reuse=self.reuse[j], rolling=self.rolling[j],
-                           layer=j, scheduler=self.scheduler, obs=self.obs,
-                           retry=self._retry)
+                           layer=j, scheduler=self.scheduler, warm=self.warm,
+                           obs=self.obs, retry=self._retry)
             for j in range(n_kv_layers)
         ]
         self.prefetcher: PrefetchWorker | None = None
@@ -369,6 +402,7 @@ class KVSwapEngine:
         self.step_log: list[StepStats] = []
         self.prefill_report: dict = {}
         self.admit_log: list[dict] = []   # one report per admit_row/prefill
+        self._prompt_np: np.ndarray | None = None
         self.device_resident = bool(cfg.device_resident
                                     and hasattr(model, "gather_context"))
         # device rolling tail per layer: [B, G, H_kv, d] fp32, written in
@@ -398,6 +432,10 @@ class KVSwapEngine:
         """Download a device tensor as the engine's storage dtype."""
         return t.to(self._dtype).cpu().numpy()
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """Upload a host array (restored prefix K or V) to the device."""
+        return torch.from_numpy(a).to(self.device)
+
     # ------------------------------------------------------------------
     def metadata_bytes(self) -> dict:
         """In-memory footprint of KVSwap state (the paper's Fig. 3a metric).
@@ -414,6 +452,13 @@ class KVSwapEngine:
             "rolling_buffer": rolling,
             "total": klr_alloc + reuse + rolling,
         }
+        if self.warm is not None:
+            # warm tier: int8 slab payload + modeled index overhead, both
+            # charged against warm_budget_bytes
+            out["warm_tier"] = self.warm.nbytes
+            out["warm_tier_index"] = self.warm.index_nbytes
+            out["warm_budget_bytes"] = self.warm.budget_bytes
+            out["total"] += out["warm_tier"] + out["warm_tier_index"]
         if any(r.device is not None for r in self.reuse):
             # the device mirrors double C's footprint; reported apart, as
             # they bound device memory
@@ -429,19 +474,25 @@ class KVSwapEngine:
             self.compute_spec, self.dims, n_new=n_new, n_ctx0=n_ctx0,
             batch=self.batch if batch is None else batch)
 
-    def _admission_report(self, *, s: int, tr, wall: float, row: int | None = None) -> None:
-        """Modeled + measured accounting of one cold admission: store writes
-        plus modeled prefill compute (no cached tokens in this slice)."""
-        compute = self._modeled_prefill_compute(s, 0, batch=None if row is None else 1)
+    def _admission_report(self, *, s: int, n_cached: int, tr, wall: float,
+                          row: int | None = None) -> None:
+        """Modeled + measured accounting of one admission (cold or warm).
+
+        ``modeled_seconds`` charges restore reads, store writes and (chunked)
+        compute sequentially; ``modeled_cold_seconds`` prices the same prompt
+        with no cached tokens, so callers can report the saving."""
+        batch = None if row is None else 1
+        compute = self._modeled_prefill_compute(s - n_cached, n_cached, batch=batch)
+        cold = self._modeled_prefill_compute(s, 0, batch=batch)
         rep = {
             "prompt_tokens": s,
-            "cached_tokens": 0,
-            "computed_tokens": s,
+            "cached_tokens": n_cached,
+            "computed_tokens": s - n_cached,
             "restore_seconds": tr.read_seconds,
             "write_seconds": tr.write_seconds,
             "compute_seconds": compute,
             "modeled_seconds": tr.read_seconds + tr.write_seconds + compute,
-            "modeled_cold_seconds": compute + tr.write_seconds,
+            "modeled_cold_seconds": cold + tr.write_seconds,
             "wall_seconds": wall,
         }
         if row is not None:
@@ -466,6 +517,75 @@ class KVSwapEngine:
         self._m_admissions.inc()
         self._m_prefill_tokens.inc(rep["computed_tokens"])
 
+    def _spill_prefill_layer(self, j: int, k_np: np.ndarray, v_np: np.ndarray,
+                             k_dev: torch.Tensor, s: int, row: int | None) -> None:
+        """Per-layer prefill spill shared by the cold and warm paths, batched
+        and per slot: write the full groups to disk, seed the rolling tail,
+        write the compressed keys into ``k_lr``.  One body so the paths cannot
+        drift (warm prefill's bit-identity contract depends on them
+        matching).  ``k_np/v_np [B, S, H_kv, d]`` host, ``k_dev`` the same K
+        on the device; ``row=None`` spills every row, else slot ``row``
+        (``B == 1``)."""
+        g = self.cfg.group_size
+        ng = s // g
+        if row is None:
+            self.store.write_prefill(j, k_np, v_np)
+            if s - ng * g:
+                self.rolling[j].seed(k_np[:, ng * g:], v_np[:, ng * g:])
+            if ng:
+                self.k_lr[j][:, :ng * g] = compress_k(k_dev[:, :ng * g].float(), self.adapter)
+            return
+        self.store.write_prefill_row(j, row, k_np[0], v_np[0])
+        if s - ng * g:
+            self.rolling[j].seed_row(row, k_np[0, ng * g:], v_np[0, ng * g:])
+        if ng:
+            self.k_lr[j][row, :ng * g] = compress_k(k_dev[0, :ng * g].float(), self.adapter)
+        if self._dev_ready:
+            # seed the device rolling tail's row from the host tail
+            self._tail_k[j][row] = torch.from_numpy(self.rolling[j].k[row]).to(
+                self.device, torch.float32)
+            self._tail_v[j][row] = torch.from_numpy(self.rolling[j].v[row]).to(
+                self.device, torch.float32)
+
+    def _prefill_layers(self, tokens_np: np.ndarray, s: int, n_cached: int = 0,
+                        k_pre: np.ndarray | None = None, v_pre: np.ndarray | None = None,
+                        row: int | None = None) -> torch.Tensor:
+        """Run tokens ``[n_cached, s)`` of ``tokens_np [B, S]`` through every
+        block and spill each KV layer; returns the last hidden state ``[B, S -
+        n_cached, D]``.  With ``n_cached`` the blocks attend over the restored
+        prefix ``k_pre/v_pre [n_kv, B, n_cached, H_kv, d]`` (chunked prefill:
+        the same score rows as the cold forward, op by op)."""
+        b = tokens_np.shape[0]
+        positions = torch.arange(n_cached, s, device=self.device)[None, :].repeat(b, 1)
+        x = self.model.embed(self.params,
+                             torch.as_tensor(tokens_np[:, n_cached:], device=self.device))
+        for layer in range(self.model.n_layers):
+            if self.layer_kinds[layer] == "state":
+                x, self.states[layer] = self.model.prefill_state_block(
+                    self.params, layer, x, positions)
+                continue
+            j = self._kv_index[layer]
+            if n_cached:
+                kp, vp = self._upload(k_pre[j]), self._upload(v_pre[j])
+                x, k_suf, v_suf = self.model.prefill_block_with_ctx(
+                    self.params, layer, x, positions, kp, vp)
+                k_dev = torch.cat([kp, k_suf], dim=1)
+                k_np = np.concatenate([k_pre[j], self._host(k_suf)], axis=1)
+                v_np = np.concatenate([v_pre[j], self._host(v_suf)], axis=1)
+            else:
+                x, k_dev, v = self.model.prefill_block(self.params, layer, x, positions)
+                k_np, v_np = self._host(k_dev), self._host(v)
+            self._spill_prefill_layer(j, k_np, v_np, k_dev, s, row)
+        return x
+
+    def _open_cache(self, cache) -> None:
+        """Bind ``cache`` to this engine's geometry, accountant and obs."""
+        cache.open(n_layers=len(self.kv_layers), group_size=self.cfg.group_size,
+                   n_kv_heads=self.model.n_kv_heads, head_dim=self.model.head_dim,
+                   dtype=self.cfg.np_dtype)
+        cache.use_accountant(self.accountant)
+        cache.use_obs(self.obs)
+
     def prefill(self, tokens: np.ndarray) -> torch.Tensor:
         """Run full-attention prefill of every row, spill KV to disk layer by
         layer, build the compressed K cache.  Returns last-position logits
@@ -476,38 +596,125 @@ class KVSwapEngine:
         b, s = tokens_np.shape
         if b != self.batch:
             raise ValueError(f"batch mismatch {b} != {self.batch}")
+        self._prompt_np = tokens_np
         for bi in range(self.batch):   # lockstep admission of every slot
             self._free_row(bi)
-        g = self.cfg.group_size
-        ng = s // g
-        positions = torch.arange(s, device=self.device)[None, :].repeat(b, 1)
-        x = self.model.embed(self.params, torch.as_tensor(tokens_np, device=self.device))
         with self.accountant.track() as tr:
-            for layer in range(self.model.n_layers):
-                if self.layer_kinds[layer] == "state":
-                    x, self.states[layer] = self.model.prefill_state_block(
-                        self.params, layer, x, positions)
-                    continue
-                j = self._kv_index[layer]
-                x, k, v = self.model.prefill_block(self.params, layer, x, positions)
-                k_np, v_np = self._host(k), self._host(v)
-                self.store.write_prefill(j, k_np, v_np)
-                if s - ng * g:
-                    self.rolling[j].seed(k_np[:, ng * g:], v_np[:, ng * g:])
-                if ng:
-                    self.k_lr[j][:, :ng * g] = compress_k(k[:, :ng * g].float(), self.adapter)
-        self.row_valid[:] = ng * g
-        self.row_seq[:] = s
-        self.row_active[:] = True
+            x = self._prefill_layers(tokens_np, s)
+        self._activate_all(s)
         logits = self.model.logits(self.params, x[:, -1])
-        self._admission_report(s=s, tr=tr, wall=time.perf_counter() - t0)
+        self._admission_report(s=s, n_cached=0, tr=tr, wall=time.perf_counter() - t0)
         return logits
 
-    def prefill_cached(self, tokens: np.ndarray, cache) -> torch.Tensor:
-        raise _later_slice("prefill through the prefix cache (prefill_cached)")
+    def _activate_all(self, s: int) -> None:
+        g = self.cfg.group_size
+        self.row_valid[:] = (s // g) * g
+        self.row_seq[:] = s
+        self.row_active[:] = True
 
-    def publish(self, cache, tokens=None, rows=None, save: bool = True):
-        raise _later_slice("publishing KV to the prefix cache (publish)")
+    # -- persistent prefix cache (repro_torch.cache) ---------------------
+    def prefill_cached(self, tokens: np.ndarray, cache) -> torch.Tensor:
+        """Prefill through the cross-request prefix cache.
+
+        Longest-prefix match the prompt against ``cache``
+        (:class:`repro_torch.cache.PrefixCache`), restore the matched blocks'
+        KV groups straight into this engine's disk store, and run **only the
+        uncached suffix** through the model (chunked prefill over restored
+        prefix KV).  At least one token is always recomputed so the call
+        still returns last-position logits.
+
+        Bit-identity: the cache stores KV in the raw engine dtype, and the
+        chunked suffix computes the same score rows as the full forward, so
+        logits (and every decode step after) equal :meth:`prefill`'s on the
+        same prompt wherever each operation gives a row the same bits
+        whatever the number of rows and keys beside it.  On the CPU that
+        holds for a suffix of two tokens or more over a prefix published
+        from a prompt of the same length (one row takes the matrix-vector
+        route, and attention over more keys sums in another order); the
+        card's fp32 GEMMs pick their kernel by shape, so there warm logits
+        agree with cold ones within 1e-4 (``PERF.md``).  Lossy stored KV
+        (``kv_bits=8``, a ``dtype`` narrower than the compute dtype) makes it
+        approximately equal.
+
+        The batch prefills in lockstep, so the usable split is the *common*
+        cached prefix (minimum over rows).  Hybrid models fall back to cold
+        prefill: recurrent state lives outside the KV cache.
+        """
+        t0 = time.perf_counter()
+        tokens_np = np.asarray(tokens)
+        b, s = tokens_np.shape
+        if b != self.batch:
+            raise ValueError(f"batch mismatch {b} != {self.batch}")
+        if (any(kind != "kv" for kind in self.layer_kinds)
+                or not hasattr(self.model, "prefill_block_with_ctx")):
+            return self.prefill(tokens_np)
+        bt = cache.cfg.block_tokens
+        self._open_cache(cache)
+
+        def common_chains():
+            chains = [cache.match(tokens_np[bi], max_tokens=s - 1) for bi in range(b)]
+            n = min(sum(m.n_tokens for m in ch) for ch in chains)
+            return n, [ch[:n // bt] for ch in chains]
+
+        n_cached, chains = common_chains()
+        if n_cached == 0:
+            return self.prefill(tokens_np)
+        self._reset_device_state()   # mirrors rebuilt at first decode
+        for bi in range(self.batch):   # lockstep admission of every slot
+            self._free_row(bi)
+        with self.accountant.track() as tr:
+            # identical rows resolve to the same chain: read each unique chain
+            # once.  A checksum mismatch quarantines the bad block (and its
+            # descendants) inside read_chain; re-match against the now-shorter
+            # cache and retry: warm prefill degrades to a longer suffix, never
+            # to wrong KV.
+            while True:
+                uniq = {ch[-1].block_id: ch for ch in chains}
+                for ch in uniq.values():
+                    cache.pin(ch)
+                try:
+                    data = {key: cache.read_chain(ch) for key, ch in uniq.items()}
+                    break
+                except CorruptBlockError:
+                    n_cached, chains = common_chains()
+                    if n_cached == 0:
+                        return self.prefill(tokens_np)
+                finally:
+                    for ch in uniq.values():
+                        cache.unpin(ch)
+            nkv, hkv, hd = len(self.kv_layers), self.model.n_kv_heads, self.model.head_dim
+            k_pre = np.empty((nkv, b, n_cached, hkv, hd), dtype=self.cfg.np_dtype)
+            v_pre = np.empty_like(k_pre)
+            for bi, ch in enumerate(chains):
+                k_pre[:, bi], v_pre[:, bi] = data[ch[-1].block_id]
+            x = self._prefill_layers(tokens_np, s, n_cached, k_pre, v_pre)
+        self._activate_all(s)
+        self._prompt_np = tokens_np
+        logits = self.model.logits(self.params, x[:, -1])
+        self._admission_report(s=s, n_cached=n_cached, tr=tr,
+                               wall=time.perf_counter() - t0)
+        return logits
+
+    def _restore_prefix(self, cache, tokens_np: np.ndarray, s: int):
+        """Longest *verified* cached prefix of one prompt: match → pin →
+        read_chain, re-matching after a :class:`CorruptBlockError`
+        (``read_chain`` quarantined the bad block and its descendants, so
+        every retry sees a strictly shorter chain and the loop terminates).
+        Returns ``(n_cached, k_pre, v_pre)`` — ``(0, None, None)`` when
+        nothing restorable is left."""
+        while True:
+            chain = cache.match(tokens_np, max_tokens=s - 1)
+            n_cached = sum(m.n_tokens for m in chain)
+            if not n_cached:
+                return 0, None, None
+            cache.pin(chain)
+            try:
+                k_pre, v_pre = cache.read_chain(chain)  # [nkv, n_cached, hkv, d]
+                return n_cached, k_pre, v_pre
+            except CorruptBlockError:
+                continue
+            finally:
+                cache.unpin(chain)
 
     # -- per-slot request lifecycle (continuous batching) ----------------
     def admit_row(self, bi: int, tokens: np.ndarray, cache=None) -> torch.Tensor:
@@ -517,10 +724,12 @@ class KVSwapEngine:
         The prompt runs as a batch-1 forward, its KV spills into row ``bi``
         of the disk store, the rolling tail seeds row ``bi`` and the
         compressed K cache gets the row's groups; no other row's state is
-        touched.  ``prefill_report`` records the admission's modeled seconds.
+        touched.  With a :class:`~repro_torch.cache.PrefixCache` the longest
+        cached prefix is restored from the cache instead of recomputed
+        (chunked suffix prefill, the bit-identity contract of
+        :meth:`prefill_cached`).  ``prefill_report`` records the admission's
+        modeled seconds.
         """
-        if cache is not None:
-            raise _later_slice("warm admission through the prefix cache (admit_row(cache=...))")
         if self.row_active[bi]:
             raise RuntimeError(f"slot {bi} is busy; retire it first")
         if any(kind != "kv" for kind in self.layer_kinds):
@@ -534,39 +743,27 @@ class KVSwapEngine:
             raise RuntimeError("prompt exceeds KV capacity; raise cfg.max_seq")
         t0 = time.perf_counter()
         self._free_row(bi)
-        g = self.cfg.group_size
-        ng = s // g
+        n_cached = 0
+        k_pre = v_pre = None
         try:
             with self.accountant.track() as tr:
-                positions = torch.arange(s, device=self.device)[None, :]
-                x = self.model.embed(self.params,
-                                     torch.as_tensor(tokens_np[None], device=self.device))
-                for layer in range(self.model.n_layers):
-                    j = self._kv_index[layer]
-                    x, k, v = self.model.prefill_block(self.params, layer, x, positions)
-                    k_np, v_np = self._host(k[0]), self._host(v[0])
-                    self.store.write_prefill_row(j, bi, k_np, v_np)
-                    if s - ng * g:
-                        self.rolling[j].seed_row(bi, k_np[ng * g:], v_np[ng * g:])
-                    if ng:
-                        self.k_lr[j][bi, :ng * g] = compress_k(
-                            k[0, :ng * g].float(), self.adapter)
-                    if self._dev_ready:
-                        # seed the device rolling tail's row from the host tail
-                        self._tail_k[j][bi] = torch.from_numpy(self.rolling[j].k[bi]).to(
-                            self.device, torch.float32)
-                        self._tail_v[j][bi] = torch.from_numpy(self.rolling[j].v[bi]).to(
-                            self.device, torch.float32)
+                if cache is not None and hasattr(self.model, "prefill_block_with_ctx"):
+                    self._open_cache(cache)
+                    n_cached, k_pre, v_pre = self._restore_prefix(cache, tokens_np, s)
+                    if n_cached:
+                        k_pre, v_pre = k_pre[:, None], v_pre[:, None]
+                x = self._prefill_layers(tokens_np[None], s, n_cached, k_pre, v_pre, row=bi)
         except StorageFault:
             # failure atomicity: a half-admitted slot must not look decodeable
             self._free_row(bi)
             self.row_active[bi] = False
             raise
         self.row_seq[bi] = s
-        self.row_valid[bi] = ng * g
+        self.row_valid[bi] = (s // self.cfg.group_size) * self.cfg.group_size
         self.row_active[bi] = True
         logits = self.model.logits(self.params, x[:, -1])[0]
-        self._admission_report(s=s, tr=tr, wall=time.perf_counter() - t0, row=bi)
+        self._admission_report(s=s, n_cached=n_cached, tr=tr,
+                               wall=time.perf_counter() - t0, row=bi)
         return logits
 
     def retire_row(self, bi: int) -> None:
@@ -598,6 +795,73 @@ class KVSwapEngine:
         self.quality.clear_row(bi)
         self.row_seq[bi] = 0
         self.row_valid[bi] = 0
+
+    def publish(self, cache, tokens: np.ndarray | Sequence[np.ndarray] | None = None,
+                rows: Sequence[int] | None = None,
+                save: bool = True) -> PublishResult:
+        """Publish this request's KV into ``cache`` (end-of-request hook).
+
+        ``tokens`` is the per-row served token history (prompt + every token
+        fed to :meth:`decode_step`); it defaults to the prefill prompt, which
+        is always safe — prompt KV was written by full-attention prefill, so
+        later warm prefills restore exactly what a cold one would compute.
+        Passing the full history also shares *generated* KV with follow-up
+        turns (as decoded under sparse attention).
+
+        Blocks are published root-first and deduplicated by content hash;
+        returns a :class:`PublishResult` counting newly resident blocks.
+        ``save=False`` defers the manifest write (the serving session saves
+        once at drain instead of once per retirement).
+        """
+        if any(kind != "kv" for kind in self.layer_kinds):
+            return PublishResult(0, {})
+        if tokens is None:
+            tokens = self._prompt_np
+        if tokens is None:        # nothing prefilled yet → nothing to publish
+            return PublishResult(0, {})
+        g = self.cfg.group_size
+        self._open_cache(cache)
+        bt = cache.cfg.block_tokens
+        nkv = len(self.kv_layers)
+        hkv, hd = self.model.n_kv_heads, self.model.head_dim
+        published = 0
+        heads: dict[int, str | None] = {}
+        bg = bt // g
+        for bi in (rows if rows is not None else range(self.batch)):
+            toks = np.asarray(tokens[bi]).reshape(-1)
+            on_disk = int(self.store.n_groups[:, bi].min()) * g
+            chain = chain_blocks(toks[:min(len(toks), on_disk)], bt)
+            # resident blocks form rooted chains, so the missing blocks are
+            # a contiguous suffix: touch the resident prefix, then read the
+            # whole missing range as ONE sequential run per layer
+            n_res = 0
+            for blk in chain:
+                if not cache.contains(blk.block_id):
+                    break
+                cache.touch(blk.block_id)
+                n_res += 1
+            missing = chain[n_res:]
+            n_ok = n_res
+            if missing:
+                g0 = missing[0].index * bg
+                ngr = len(missing) * bg
+                k = np.empty((nkv, ngr, g, hkv, hd), dtype=self.cfg.np_dtype)
+                v = np.empty_like(k)
+                for j in range(nkv):
+                    # retried like a decode fetch: a transient read error must
+                    # not lose the chain at the finish line
+                    k[j], v[j] = self.managers[j].read_run_with_retry(
+                        bi, ReadRun(g0, ngr, tuple(range(g0, g0 + ngr))))
+                for blk in missing:
+                    off = blk.index * bg - g0
+                    if not cache.put_block(blk, k[:, off:off + bg], v[:, off:off + bg]):
+                        break   # budget exhausted by pinned blocks; keep the chain rooted
+                    published += 1
+                    n_ok += 1
+            heads[int(bi)] = chain[n_ok - 1].block_id if n_ok else None
+        if save:
+            cache.save()
+        return PublishResult(published, heads)
 
     # ------------------------------------------------------------------
     def decode_step(self, token_ids) -> torch.Tensor:

@@ -97,6 +97,32 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return torch.einsum("bhqk,bkhd->bqhd", w, vq)
 
 
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             q_start: int) -> torch.Tensor:
+    """Causal attention for a *suffix chunk* of queries over the full keys.
+
+    ``q [B,Sq,H,d]`` covers absolute positions ``[q_start, q_start+Sq)``;
+    ``k/v [B,Sk,Hk,d]`` cover positions ``[0, Sk)`` (cached prefix KV
+    concatenated with the chunk's own KV).  With ``q_start=0`` and
+    ``Sq == Sk`` this is exactly :func:`causal_attention` — the chunked path
+    computes the same score rows, so restoring bit-identical prefix KV makes
+    warm prefill bit-identical to cold (``KVSwapEngine.prefill_cached``).
+    """
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    hk = k.shape[2]
+    kq = repeat_kv(k, h // hk)
+    vq = repeat_kv(v, h // hk)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kq) / math.sqrt(d)
+    # the [Sq, Sk] slice of the causal mask, built directly (an Sk×Sk tril
+    # would be quadratic in the cached context for a short suffix)
+    mask = ((q_start + torch.arange(sq, device=q.device))[:, None]
+            >= torch.arange(sk, device=q.device)[None, :])
+    scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vq)
+
+
 def decode_attention(q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
                      ctx_mask: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor) -> torch.Tensor:

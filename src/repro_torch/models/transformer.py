@@ -271,6 +271,28 @@ class TransformerAdapter:
         card) → ``(x_out, state)``."""
         return block_forward(params, self.cfg, layer, x, positions)
 
+    def prefill_block_with_ctx(self, params, layer: int, x: torch.Tensor,
+                               positions: torch.Tensor, k_prefix: torch.Tensor,
+                               v_prefix: torch.Tensor):
+        """Chunked prefill: run only the *suffix* tokens through attention
+        block ``layer``, attending over restored prefix KV plus their own.
+
+        ``x [B, S_suf, D]``, ``positions [B, S_suf]`` (absolute),
+        ``k_prefix/v_prefix [B, S_pre, H_kv, d]`` (post-RoPE, as cached).
+        Returns ``(x_out [B, S_suf, D], k_suf, v_suf [B, S_suf, H_kv, d])``.
+        It runs op by op as :func:`block_forward` does, so it computes the
+        same score rows as the cold path.
+        """
+        cfg = self.cfg
+        nb, attn_p, mlp_holder = _attn_params(params, cfg, layer)
+        q, k, v = _qkv(cfg, attn_p, L.rmsnorm(nb["attn_norm"], x), positions)
+        k_all = torch.cat([k_prefix.to(k.dtype), k], dim=1)
+        v_all = torch.cat([v_prefix.to(v.dtype), v], dim=1)
+        o = L.chunked_causal_attention(q, k_all, v_all, k_prefix.shape[1])
+        x = x + o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim) @ attn_p["wo"]
+        x = x + L.swiglu(mlp_holder["mlp"], L.rmsnorm(mlp_holder["mlp_norm"], x))
+        return x, k, v
+
     # -- decode ------------------------------------------------------------
     def gather_context(self, dev_k, dev_v, slots, tail_k, tail_v, tail_fill):
         """Device-resident context assembly (engine ``device_resident=True``):

@@ -3,8 +3,7 @@
 The PyTorch port of :mod:`repro.serving.api`; the scheduling is the
 reference's, unchanged.  The engine hands back logits as device tensors,
 which the session pulls to the host with ``.cpu().numpy()`` where the
-reference used ``np.asarray``.  The prefix cache and fault injection are not
-ported yet: ``prefix_cache=`` and ``faults=`` raise ``NotImplementedError``.
+reference used ``np.asarray``.
 
 The paper's deployment scenario is batched on-device serving (Tab. 4, batch
 1-16); serving-as-a-service systems for this setting (LLMS, LMCache) treat
@@ -23,7 +22,8 @@ lifecycle.  This module is that front end for the KVSwap runtime:
 
 * :meth:`ServeSession.step` is one scheduler iteration: admit due requests
   into free slots, sample one token per running slot, retire finished
-  slots, and run one engine decode step over the remaining active rows.
+  slots (publishing their served KV to the prefix cache first), and run one
+  engine decode step over the remaining active rows.
 
 Time is **modeled** (the DiskSpec/ComputeSpec accountants): the session
 clock advances by each admission's modeled prefill seconds and each decode
@@ -159,10 +159,6 @@ class ServeSession:
                  adapter=None, prefix_cache=None, obs=None,
                  faults=None, degrade: DegradationPolicy | None = None,
                  device=None):
-        if prefix_cache is not None:
-            raise NotImplementedError(
-                "the prefix cache is not ported to repro_torch yet; it comes "
-                "with a later slice of the port (see ROADMAP.md)")
         kinds = getattr(model, "layer_kinds", ("kv",) * model.n_layers)
         if any(k != "kv" for k in kinds):
             raise ValueError(
@@ -176,11 +172,17 @@ class ServeSession:
         # land on the same timeline
         self.obs = self.engine.obs
         self.n_slots = slots
+        self.prefix_cache = prefix_cache
+        if faults is not None and prefix_cache is not None:
+            prefix_cache.use_faults(faults)
         self.now = 0.0                  # modeled seconds
+        self.published_blocks = 0
         self.completed: dict[int, Request] = {}
         self.failed: dict[int, Request] = {}
         self.rejected = 0               # front-door rejections (never admitted)
         self.recovered_rows = 0         # survivor rows replayed after a fault
+        self.publish_failures = 0       # best-effort publishes that errored
+        self.save_failures = 0          # manifest saves that errored
         self.degrade = degrade
         self._degrade_level = 0
         self._base_n_select = self.engine.n_select
@@ -296,7 +298,7 @@ RequestRejected` (a ``ValueError``) and count on
             # dequeue only after the admission succeeds, so an admission
             # failure leaves the request visible instead of losing it
             try:
-                logits = self.engine.admit_row(i, due.prompt)
+                logits = self.engine.admit_row(i, due.prompt, self.prefix_cache)
             except StorageFault as exc:
                 # admit_row rolled the slot back (failure atomicity), so the
                 # slot is reusable; the request fails terminally — storage
@@ -321,6 +323,22 @@ RequestRejected` (a ``ValueError``) and count on
     def _finish(self, i: int, events: list) -> None:
         slot = self._slots[i]
         req = slot.req
+        if self.prefix_cache is not None:
+            # publish BEFORE retirement frees the row's disk extents; the
+            # engine clamps the history to what is actually on disk
+            history = np.concatenate(
+                [req.prompt, np.asarray(slot.out, np.int64)])
+            # manifest save is deferred to drain()/close(): one rewrite per
+            # drain, not one per retirement
+            try:
+                self.published_blocks += self.engine.publish(
+                    self.prefix_cache, tokens={i: history}, rows=[i], save=False)
+            except StorageFault:
+                # publishing is best-effort cache warming: the request's
+                # tokens are already complete, so a failed publish costs
+                # future warm prefills, never this request
+                self.publish_failures += 1
+                self._count("kvswap_publish_failures_total")
         self.engine.retire_row(i)
         req.output = np.asarray(slot.out, np.int64)
         req.state, req.finished_at, req.slot = DONE, self.now, None
@@ -554,7 +572,21 @@ RequestRejected` (a ``ValueError``) and count on
         (requests that failed terminally are in :attr:`failed`)."""
         for _ in self.stream():
             pass
+        if self.prefix_cache is not None:
+            self._save_cache()
         return self.completed
+
+    def _save_cache(self) -> None:
+        """Persist the prefix-cache manifest, absorbing storage faults: the
+        manifest is an optimization for the *next* process, so a failed (or
+        crash-injected) save must not fail a drain whose tokens are already
+        complete.  A torn write is recovered at next open (empty index +
+        orphan GC, see ``cache/manifest.py``)."""
+        try:
+            self.prefix_cache.save()
+        except StorageFault:
+            self.save_failures += 1
+            self._count("kvswap_manifest_save_failures_total")
 
     def result(self, rid: int) -> np.ndarray:
         return self.completed[rid].output
@@ -595,8 +627,8 @@ RequestRejected` (a ``ValueError``) and count on
             "failed_requests": len(self.failed),
             "rejected_requests": self.rejected,
             "recovered_rows": self.recovered_rows,
-            "publish_failures": 0,
-            "save_failures": 0,
+            "publish_failures": self.publish_failures,
+            "save_failures": self.save_failures,
             "io_retries": sum(m.retries for m in eng.managers),
             "fetch_failures": sum(m.fetch_failures for m in eng.managers),
             "stall_seconds": snap.get("stall_seconds", 0.0),
@@ -626,6 +658,8 @@ RequestRejected` (a ``ValueError``) and count on
 
     # -- lifecycle --------------------------------------------------------
     def close(self) -> None:
+        if self.prefix_cache is not None and self.published_blocks:
+            self._save_cache()   # publishes defer their manifest write
         self.engine.close()
 
     def __enter__(self):

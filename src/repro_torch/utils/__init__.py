@@ -1,1 +1,1 @@
-"""Small shared helpers (order statistics)."""
+"""Small shared helpers (order statistics, byte sizes)."""

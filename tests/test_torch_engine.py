@@ -15,6 +15,7 @@ The seeds below were chosen so that no step comes closer (the check fails
 loudly, naming the step, if a change of inputs brings a near-tie).
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -24,6 +25,7 @@ import torch
 
 from repro.core.engine import EngineConfig as JConfig, KVSwapEngine as JEngine
 from repro_torch.bridge import params_from_numpy
+from repro_torch.cache import PrefixCache, PrefixCacheConfig
 from repro_torch.core.engine import EngineConfig, KVSwapEngine
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import ModelConfig, TransformerAdapter
@@ -129,20 +131,38 @@ def test_device_mirror_counts_payload_only(port_model, calib, tiny_cfg):
         assert all(m.scatter_calls >= 1 for m in mirrors)
 
 
-# -- the port's own bit-identity grid (tests/test_equality_matrix.py's slice) --
+# -- the port's own bit-identity grid (tests/test_equality_matrix.py) --
 
 GRID = dict(group_size=4, n_select=6, rank=8, reuse_capacity=4, max_seq=128,
             predict_from="self")
 _REFS: dict = {}
 
 
-def serve(port_model, calib, tiny_cfg, **kw):
+HEAD = 32            # published and restored prefix length (4 cache blocks)
+
+
+def serve(port_model, calib, tiny_cfg, prefix=False, **kw):
+    """Two requests over two slots; with ``prefix``, a session with a prefix
+    cache first publishes each prompt's first ``HEAD`` tokens, and the
+    requests must then restore them."""
     rng = np.random.default_rng(42)
     prompts = [rng.integers(0, tiny_cfg.vocab_size, 57), rng.integers(0, tiny_cfg.vocab_size, 49)]
-    with ServeSession(*port_model, EngineConfig(**{**GRID, **kw}), slots=2,
-                      calib_k=calib, device="cpu") as sess:
+    with contextlib.ExitStack() as stack:
+        cache = (stack.enter_context(PrefixCache(PrefixCacheConfig(block_tokens=8)))
+                 if prefix else None)
+        sess = stack.enter_context(ServeSession(*port_model, EngineConfig(**{**GRID, **kw}),
+                                                slots=2, calib_k=calib, prefix_cache=cache,
+                                                device="cpu"))
+        if prefix:
+            for p in prompts:
+                sess.submit(p[:HEAD], 1)
+            sess.drain()
         rids = [sess.submit(p, 8) for p in prompts]
         done = sess.drain()
+        if prefix:
+            assert all(done[r].cached_tokens >= HEAD - 8 for r in rids)
+        if kw.get("warm_budget_bytes"):
+            assert sess.engine.warm.stats.hits > 0
         return [done[r].output for r in rids]
 
 
@@ -159,29 +179,23 @@ def test_bit_identity_grid(port_model, calib, tiny_cfg, dr, aio, kvb):
         np.testing.assert_array_equal(g, w)
 
 
-# -- refusals of what later slices bring ------------------------------------
-
-@pytest.mark.parametrize("what", ["faults", "warm_tier", "prefill_cached", "publish",
-                                  "admit_with_cache", "session_prefix_cache"])
-def test_later_slices_are_refused(port_model, calib, what):
-    model, params = port_model
-    make = lambda **kw: KVSwapEngine(model, params, EngineConfig(**{**CFG, **kw}), batch=1,
-                                     calib_k=calib, device="cpu", **(
-                                         {"faults": object()} if what == "faults" else {}))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        if what in ("faults", "warm_tier"):
-            make(**({"warm_budget_bytes": 1 << 20} if what == "warm_tier" else {}))
-        elif what == "session_prefix_cache":
-            ServeSession(model, params, EngineConfig(**CFG), slots=1, calib_k=calib,
-                         prefix_cache=object(), device="cpu")
-        else:
-            with make() as eng:
-                if what == "prefill_cached":
-                    eng.prefill_cached(np.zeros((1, 8), np.int64), object())
-                elif what == "publish":
-                    eng.publish(object())
-                else:
-                    eng.admit_row(0, np.zeros(8, np.int64), cache=object())
+@pytest.mark.parametrize("dr", [False, True], ids=["host", "resident"])
+@pytest.mark.parametrize("aio", [False, True], ids=["sync", "async"])
+@pytest.mark.parametrize("feature", ["prefix", "warm"], ids=["kv16-prefix", "kv8-warm"])
+def test_bit_identity_grid_features(port_model, calib, tiny_cfg, dr, aio, feature):
+    """The features that keep tokens at their exact-equality ``kv_bits``:
+    prefix restore at kv16 (raw stored KV), the warm tier at kv8 (it
+    re-quantizes with the disk's scale), against the featureless reference
+    of the same ``kv_bits``."""
+    kvb = 16 if feature == "prefix" else 8
+    if kvb not in _REFS:
+        _REFS[kvb] = serve(port_model, calib, tiny_cfg, device_resident=False,
+                           async_io=False, kv_bits=kvb)
+    got = serve(port_model, calib, tiny_cfg, prefix=feature == "prefix", device_resident=dr,
+                async_io=aio, kv_bits=kvb, warm_budget_bytes=(1 << 20) * (feature == "warm"))
+    for g, w in zip(got, _REFS[kvb]):
+        assert len(g) == 8
+        np.testing.assert_array_equal(g, w)
 
 
 def test_generate_stop_ids_masks_the_row(port_model, calib, tiny_cfg):
