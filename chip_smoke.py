@@ -13,7 +13,13 @@
    bitwise equal over 5 repeated calls), and times the kernel, the plain
    version and (where one exists) one library call with CUDA events at
    each path's shapes, and the kernel alone with ``torch.profiler``;
-   prints the events' floor (one launch of a trivial fill);
+   prints the events' floor (one launch of a trivial fill); checks and
+   times kernel B past head_dim 128 (stablelm-12b's d = 160, and d = 256)
+   and prints its blocks per SM at each width; with ``--parent DIR`` (a
+   checkout of another tree) builds that tree's kernel B and times both in
+   turns at the serving and hybrid paths' shapes; runs the tiny engine on
+   the card and on the CPU and compares every group selection and token
+   (the flipped selections, each with its score gaps);
 3. drives the first main path: a ``ServeSession`` at Llama-3.1-8B width (all
    32 layers, fp32 random weights from seed 0) answering 6 greedy requests
    of 1024-2048 prompt tokens and 32 new tokens each over 4 slots, and
@@ -34,7 +40,23 @@
    logits must be bit-equal (then every request's tokens must equal the
    control's) or within 1e-4 of their largest magnitude, with the first
    operation of layer 0 whose bits differ printed;
-5. at 4 layers (full width, one set of weights): the main path's requests
+5. drives the router path on the same weights: two replicas, each a
+   ``ServeSession`` with its own prefix cache, behind ``FrontEnd(pool,
+   PrefixAffinityRouter())``, replaying a three-tenant chat trace (1024
+   system tokens and 128 more a turn, three turns, 16 new tokens): every
+   later turn must go to its tenant's first replica, arrive after the
+   previous turn finished on the modeled clock and restore at least 1024
+   tokens; prints routes, cached and computed tokens, the fleet's hit rate,
+   cold and warm admission walls, each replica's decode-step median,
+   tokens/s and peak memory; then the disaggregated path: a
+   ``PrefillEngine`` handing off to a decode ``ServeSession`` over one
+   prefix cache for 4 prompts of 1536-2048 tokens arriving at once (every
+   ticket done, each decode admission restoring every published block
+   below the prompt's last token, no kernel launched in the prefill
+   engine, tokens equal to a co-located control's, first-token logits
+   within 1e-4 of their largest magnitude), printing each ticket's
+   prefill, publish and decode-admission walls;
+6. at 4 layers (full width, one set of weights): the main path's requests
    with ``async_io`` on and off (bit-identical tokens); the warm tier
    (``kv_bits=8``, 256 MiB) against the tier off (bit-identical tokens,
    warm-served bytes above 0); transient read faults with retries
@@ -44,8 +66,15 @@
    %, some survive at 1 %, and survivors' tokens equal the unfaulted
    run's);
    and the prefix path with blocks corrupted at rest (quarantines above 0,
-   tokens equal to the control without cache or faults);
-6. drives the hybrid path: Zamba2-1.2B at full width (all 38 blocks:
+   tokens equal to the control without cache or faults); ``BatchServer``
+   flushes bit-identical to a ``ServeSession``; the router's tokens
+   bit-identical to each replica's arrivals replayed in a fresh solo
+   session, scoring that leaves every cache as it was, and
+   ``repro_torch.obs.report`` over each replica's exported trace; a
+   disaggregated chain corrupted at rest re-queued without a decode
+   admission and completed with the control's tokens; a trace replayed
+   twice with byte-identical metrics;
+7. drives the hybrid path: Zamba2-1.2B at full width (all 38 blocks:
    32 Mamba2, 6 shared attention; fp32 random weights from seed 0) through
    ``KVSwapEngine.generate`` for 4 prompts of 2048 tokens and 32 new tokens,
    and checks the tokens' shape, finite logits, that only the 6 attention
@@ -56,7 +85,7 @@
    among them, the device's busy share and the host's time alone); then
    generates at 12 blocks with ``async_io`` and ``device_resident`` each
    on and off and requires bit-identical tokens;
-7. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
+8. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
    path that runs it (``path``): its time, bound, plain and library times
    at that path's shapes, and ``launches`` in that path's main run, counted
    from 0 just before it; then, last, the ``{"ok": true, ...}`` line.
@@ -92,6 +121,10 @@ ATTN_TOL = 1e-5                # kernel B: |err| <= 1e-5 x max(1, |output|max)
 SSD_TOL = 1e-4
 LLAMA, ZAMBA = "llama3-8b", "zamba2-1.2b"      # the serving and hybrid paths
 PREFIX = "llama3-8b-prefix"                    # the serving path over the prefix cache
+ROUTER = "llama3-8b-router"                    # two replicas behind the KV-affinity router
+DISAGG = "llama3-8b-disagg"                    # a prefill engine handing off to a decode session
+# stablelm-12b's attention (configs/stablelm_12b.py): kernel B at head_dim 160
+STABLELM_ATTN = (4, 32, 8, 160, 405)
 # each kernel's source and the TPU kernel it replaces
 SOURCES = {"lowrank_group_scores": ("lowrank_score.cu", "src/repro/kernels/lowrank_score.py:23"),
            "gather_attention": ("gather_attention.cu", "src/repro/kernels/gather_attention.py:28"),
@@ -159,8 +192,12 @@ def ptxas_lines(log: str) -> list[str]:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            name = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", entry.group(1))
-            kernels.append((f"{name.group(1)}<{name.group(2)}>" if name and name.group(2) else
+            # template arguments: an int, then (kernel B) whether it is the wide one
+            name = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", entry.group(1))
+            args = [] if not name else [a for a in name.group(2, 3) if a is not None]
+            if len(args) == 2:
+                args[1] = "wide" if args[1] == "1" else "narrow"
+            kernels.append((f"{name.group(1)}<{', '.join(args)}>" if args else
                             name.group(1) if name else entry.group(1), {}))
         elif kernels:
             for key, pat in keys.items():
@@ -311,8 +348,11 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
     # prompts of 2048 and the prefix path's first four prompts halfway
     # through their 32 decode steps
     b, h, r, n, g = 4, 32, 64, 4096, 4
+    # the router path's three turn lengths and the disagg path's four prompts,
+    # halfway through their 16 decode steps
     valid_a = {LLAMA: [1024, 1536, 2048, 1200], ZAMBA: [2064] * 4,
-               PREFIX: [1868, 2012, 1876, 1820]}
+               PREFIX: [1868, 2012, 1876, 1820], ROUTER: [1160, 1288, 1416, 1160],
+               DISAGG: [1980, 1870, 1806, 1682]}
     err_a = 0.0
     for shape, vl in [((3, 16, 64, 1000, 4), [1000, 0, 100]),   # ragged N, empty row, masked tiles
                       ((2, 8, 32, 130, 8), [130, 7]),            # ragged last group
@@ -332,7 +372,8 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
     # kernel B: S = M*G + G + 1 = 405; Llama H=32, H_kv=8, d=128 (both of its
     # paths); Zamba2 H = H_kv = 32, d=64 (one query head per KV head)
     shape_b = {LLAMA: (4, 32, 8, 128, 405), ZAMBA: (4, 32, 32, 64, 405),
-               PREFIX: (4, 32, 8, 128, 405)}
+               PREFIX: (4, 32, 8, 128, 405), ROUTER: (4, 32, 8, 128, 405),
+               DISAGG: (4, 32, 8, 128, 405)}
     err_b = 0.0
     for shape in [(2, 8, 2, 64, 37), (3, 16, 8, 128, 301), (1, 4, 4, 32, 1)]:
         bb, _, _, _, ss = shape
@@ -384,6 +425,119 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
            "plain_ms": device_ms(lambda: ops.ssd_chunk_plain(*args), flush),
            "bound_ms": bound_c, "bound_by": by_c, "library_ms": None})
     return entries
+
+
+def attention_inputs(dev, gen, b, h, hk, d, s):
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    k = torch.randn((b, s, hk, d), generator=gen, device=dev)
+    v = torch.randn((b, s, hk, d), generator=gen, device=dev)
+    mask = torch.rand((b, s), generator=gen, device=dev) > 0.2
+    mask[:, -1] = True
+    return q, k, v, mask
+
+
+def wide_attention(ops, dev, card) -> None:
+    """Kernel B past head_dim 128: held against its plain version at
+    stablelm-12b's attention shape (and S = 1) and at d = 256, timed at
+    stablelm-12b's shape; its blocks per SM at each path's (rep, d)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    b, h, hk, d, s = STABLELM_ATTN
+    err = 0.0
+    for shape in [STABLELM_ATTN, (2, 32, 8, 160, 1), (2, 16, 2, 256, 300), (3, 8, 1, 256, 33)]:
+        bb, _, _, _, ss = shape
+        m2 = torch.rand((bb, ss), generator=gen, device=dev) > 0.3
+        m2[0, 32:64] = False
+        m2[0, -1] = True
+        m2[-1] = False
+        err = max(err, check_attention(ops, dev, gen, *shape, m2))
+    q, k, v, mask = attention_inputs(dev, gen, *STABLELM_ATTN)
+    first = ops.gather_attention(q, k, v, mask)
+    check(all(torch.equal(ops.gather_attention(q, k, v, mask), first) for _ in range(5)),
+          "kernel B at d = 160: repeated calls differ in their bits")
+    t = time_attention(ops, dev, gen, flush, b, h, hk, d, s, mask)
+    print(f"kernel gather_attention at stablelm-12b's attention shape (B {b}, H {h}, H_kv {hk}, "
+          f"d {d}, S {s}): {t['ms'] * 1e3:.2f} us (kernel alone {t['device_ms'] * 1e3:.2f} us), "
+          f"plain {t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+          f"({t['bound_by']}), library {t['library_ms'] * 1e3:.2f} us, max abs err {err:.3g} "
+          f"(d 160 and 256, S 1-405, masked splits and rows)  [{card}]")
+    occ = {(rep, dd): ops.gather_attention_occupancy(rep, dd)
+           for rep, dd in ((4, 128), (1, 64), (4, 160), (8, 256))}
+    print("kernel gather_attention blocks per SM (dynamic shared memory a block): " + "; ".join(
+        f"rep {rep}, d {dd}: {o['blocks_per_sm']} ({o['smem_bytes']} B)"
+        for (rep, dd), o in occ.items()), flush=True)
+
+
+def parent_attention(parent: Path, dev):
+    """Kernel B as the tree at ``parent`` builds it (the same nvcc flags), as
+    a callable of ``(q, k, v, mask)``; the C entry point is the same."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    src = parent / "src" / "repro_torch" / "kernels" / "csrc" / "gather_attention.cu"
+    lib = ROOT / "build" / "parent_kernels" / "libgather_attention.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                         capture_output=True, text=True)
+    check(out.returncode == 0, f"the parent's kernel B did not build:\n{out.stdout}{out.stderr}")
+    for line in ptxas_lines(out.stdout + out.stderr):
+        print(f"  ptxas parent gather_attention: {line}")
+    fn = ctypes.CDLL(str(lib)).gather_attention_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    counter = torch.zeros(4096, dtype=torch.int32, device=dev)
+
+    def call(q, k, v, mask):
+        b, h, d = q.shape
+        s, hk = k.shape[1], k.shape[2]
+        n = -(-s // 32)
+        o = torch.empty_like(q)
+        pacc = torch.empty((b, h, n, d), device=dev)
+        pml = torch.empty((b, h, n, 2), device=dev)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), o.data_ptr(),
+                 pacc.data_ptr(), pml.data_ptr(), counter.data_ptr(), b, h, hk, s, d, n,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"the parent's kernel B failed to launch: CUDA error {err}")
+        return o
+    return call
+
+
+def against_parent(ops, parent: Path, dev, card) -> None:
+    """Kernel B of this tree and of the parent's, timed in turns (parent,
+    this, this, parent) at the serving and hybrid paths' shapes, on the same
+    inputs; the two agree in their bits at d <= 128."""
+    old = parent_attention(parent, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for path, shape in ((LLAMA, (4, 32, 8, 128, 405)), (ZAMBA, (4, 32, 32, 64, 405))):
+        q, k, v, mask = attention_inputs(dev, gen, *shape)
+        check(torch.equal(old(q, k, v, mask), ops.gather_attention(q, k, v, mask)),
+              f"kernel B at {path}'s shapes differs in its bits from the parent's")
+        turns = [device_ms(functools.partial(fn, q, k, v, mask), flush)
+                 for fn in (old, ops.gather_attention, ops.gather_attention, old)]
+        print(f"kernel gather_attention at {path}'s shapes against the parent tree, in turns "
+              f"(parent, this, this, parent): {', '.join(f'{t * 1e3:.2f}' for t in turns)} us; "
+              f"bit-equal outputs  [{card}]", flush=True)
+
+
+def route_phase(compare_routes, dev, card) -> None:
+    """The engine's card route (kernels A and B) against its CPU route (the
+    plain versions) on one set of tiny weights."""
+    run = compare_routes(dev)
+    flips = run["flips"]
+    print(f"card route against CPU route (tiny_cfg shape, device_resident, 12 greedy steps, 2 "
+          f"rows): tokens equal {run['tokens_equal']}; {len(flips)} flipped selections of "
+          f"{run['selections']}; card launches {run['launches_card']}  [{card}]")
+    for f in flips:
+        print(f"  flip at step {f['step']}, layer {f['layer']}, row {f['row']}: the card chose "
+              f"{f['groups_a']} over {f['groups_b']} by {f['gap_a']:.3g}, the CPU the other way "
+              f"by {f['gap_b']:.3g}, the two sides' scores differ by {f['score_diff']:.3g} "
+              f"(of the row's score scale {f['scale']:.3g}; kernel A's tolerance {SCORE_RTOL})")
+    check(run["tokens_equal"], f"card and CPU routes give different tokens: "
+          f"{run['tokens_card'].tolist()} against {run['tokens_cpu'].tolist()}")
+    check(all(n > 0 for n in run["launches_card"].values()), "the card route ran no kernel")
+    check(all(max(f["gap_a"], f["gap_b"]) <= max(f["score_diff"], SCORE_RTOL) for f in flips),
+          "a flipped selection is not a near-tie within the two sides' score difference")
 
 
 def step_kernels_ms(entries, path, launches, steps) -> float:
@@ -548,7 +702,199 @@ def prefix_phases(run_prefix_path, cfg, ecfg, weights, dev, card) -> dict:
     return launches
 
 
-def reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev) -> None:
+def median_ms(walls) -> str:
+    return f"{statistics.median(walls) * 1e3:.1f}" if walls else "-"
+
+
+def router_phase(run_router_path, cfg, ecfg, weights, dev, card) -> dict:
+    """The router path at full width on the main path's weights: two
+    replicas behind the KV-affinity router replaying a three-tenant chat
+    trace; returns the replay's launches."""
+    t0 = time.perf_counter()
+    run = run_router_path(cfg, device=dev, engine_cfg=ecfg, weights=weights)
+    n_layers, reqs = run["n_layers"], run["requests"]
+    check(n_layers == 32, f"router path ran {n_layers} layers")
+    check(len(reqs) == 9 and all(q["output"] is not None and len(q["output"]) == 16
+                                 for q in reqs),
+          "not every router-path request completed with 16 tokens")
+    check(run["logits_finite"], "non-finite logits on the router path")
+    for q in reqs:
+        print(f"router path: request {reqs.index(q)} tenant {q['tenant']} turn {q['turn']} -> "
+              f"{q['replica']}; prompt {q['prompt_tokens']}, cached {q['cached_tokens']}, "
+              f"computed {q['prompt_tokens'] - q['cached_tokens']}; modeled arrival "
+              f"{q['arrival']:.3f} s, previous turn finished at "
+              + ("-" if q["prev_finished_at"] is None else f"{q['prev_finished_at']:.3f} s"))
+    first = {q["tenant"]: q["replica"] for q in reqs if q["turn"] == 1}
+    for q in reqs:
+        if q["turn"] > 1:
+            check(q["arrival"] >= q["prev_finished_at"],
+                  f"tenant {q['tenant']} turn {q['turn']} arrived at {q['arrival']:.3f} s, "
+                  f"before its previous turn finished ({q['prev_finished_at']:.3f} s)")
+            check(q["replica"] == first[q["tenant"]],
+                  f"tenant {q['tenant']} turn {q['turn']} went to {q['replica']}, turn 1 to "
+                  f"{first[q['tenant']]}")
+            check(q["cached_tokens"] >= 1024,
+                  f"tenant {q['tenant']} turn {q['turn']} restored {q['cached_tokens']} tokens")
+    steps = run["decode_steps"]
+    for name, n in run["launches"].items():
+        check(n == sum(steps.values()) * n_layers,
+              f"router path: {name} launched {n} times, expected {sum(steps.values())} "
+              f"steps x {n_layers}")
+    adm = [a for walls in run["admissions"].values() for a in walls]
+    cold = [a["wall_seconds"] for a in adm if not a["cached_tokens"]]
+    warm = [a["wall_seconds"] for a in adm if a["cached_tokens"]]
+    fleet = run["fleet"]
+    print(f"router path: llama3-8b, {n_layers} layers, 2 replicas x 4 slots, "
+          f"PrefixAffinityRouter, 9 requests of 3 tenants (1024 system + 128 a turn, 16 new); "
+          f"decode steps {steps}, launches {run['launches']}, total "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    print(f"router path: warm-prefill hit rate {fleet['cached_prompt_tokens']} / "
+          f"{fleet['prompt_tokens']} = {fleet['prefix_hit_rate']:.4f} cached prompt tokens; cold "
+          f"admissions ms {ms_list(cold)}, warm admissions ms {ms_list(warm)}; decode step wall "
+          f"median by replica " + ", ".join(f"{n} {median_ms(w)} ms over {len(w)}" for n, w in
+                                            run["decode_step_wall_seconds"].items())
+          + f"; publish {', '.join(f'{n} {t:.2f} s' for n, t in run['publish_seconds'].items())}; "
+          f"{run['tokens_per_s']:.1f} tokens/s over the replay ({run['wall_seconds']:.1f} s); "
+          f"peak device memory {run['peak_memory_bytes'] / 2**30:.2f} GiB  [{card}]", flush=True)
+    return run["launches"]
+
+
+def disagg_phase(run_disagg_path, cfg, ecfg, weights, dev, card) -> dict:
+    """The disaggregated path at full width on the main path's weights: one
+    prefill engine handing off to one decode session over a shared prefix
+    cache, 4 long prompts arriving at once, and the co-located control;
+    returns the front end's launches."""
+    t0 = time.perf_counter()
+    run = run_disagg_path(cfg, device=dev, engine_cfg=ecfg, weights=weights)
+    n_layers, steps = run["n_layers"], run["decode_steps"]
+    check(n_layers == 32, f"disagg path ran {n_layers} layers")
+    check(run["states"] == ["done"] * 4, f"disagg tickets ended {run['states']}")
+    check(run["logits_finite"], "non-finite logits on the disagg path")
+    for n, t in zip(run["prompt_lens"], run["tickets"]):
+        adm = t["decode_admission"]
+        print(f"disagg path: prompt {n}: prefill {t['prefill_seconds'] * 1e3:.1f} ms, publish "
+              f"{t['publish_seconds'] * 1e3:.1f} ms ({t['published_blocks']} blocks), decode "
+              f"admission {adm['wall_seconds'] * 1e3:.1f} ms (restored {adm['cached_tokens']}, "
+              f"computed {adm['computed_tokens']})  [{card}]")
+        # every published block below the prompt's last token, which a
+        # restore always leaves to compute
+        check(adm["cached_tokens"] == (n - 1) // 32 * 32 and t["published_blocks"] == n // 32,
+              f"disagg prompt {n}: the decode admission restored {adm['cached_tokens']} tokens, "
+              f"{t['published_blocks']} blocks were published")
+    for name, k in run["prefill_launches"].items():
+        check(k == 0, f"disagg path: {name} launched {k} times in the prefill engine's steps")
+    for name, k in run["launches"].items():
+        check(k == steps * n_layers,
+              f"disagg path: {name} launched {k} times, expected {steps} steps x {n_layers}")
+    check(all(run["tokens_equal"]), f"disagg tokens differ from the co-located control's: "
+          f"{run['tokens_equal']}")
+    fl = run["first_logits"]
+    for f in fl:
+        check(f["max_abs_diff"] <= 1e-4 * f["max_abs_logit"],
+              f"disagg first-token logits differ from the control's by {f['max_abs_diff']:.3g}, "
+              f"more than 1e-4 of {f['max_abs_logit']:.3g}")
+    walls = run["decode_step_wall_seconds"]
+    print(f"disagg path: llama3-8b, {n_layers} layers, PrefillEngine p0 -> ServeSession(4 slots) "
+          f"over one prefix cache, prompts {run['prompt_lens']} at t = 0, 16 new each; tickets "
+          f"{run['states']}, {steps} decode steps, launches {run['launches']} (in the prefill "
+          f"engine's steps {run['prefill_launches']}); tokens equal to the co-located control's; "
+          f"first-token logits bit-equal {[f['bits_equal'] for f in fl]}, max abs diff "
+          f"{max(f['max_abs_diff'] for f in fl):.3g} (largest |logit| "
+          f"{max(f['max_abs_logit'] for f in fl):.3g}); total {time.perf_counter() - t0:.1f} s "
+          f"(control included)  [{card}]")
+    print(f"disagg path: decode step wall median {median_ms(walls)} ms over {len(walls)} steps; "
+          f"{run['tokens_per_s']:.1f} tokens/s over the front end's drain "
+          f"({run['wall_seconds']:.1f} s, prefills and publishes included); peak device memory "
+          f"{run['peak_memory_bytes'] / 2**30:.2f} GiB  [{card}]", flush=True)
+    return run["launches"]
+
+
+def front_half_reduced(main_mod, cfg, ecfg, weights, dev, card) -> None:
+    """The serving front half at 4 layers (full width, the 4-layer weights):
+    BatchServer against ServeSession, routed against solo sessions, peek
+    neutrality, the report over an exported trace, a corrupt chain at the
+    handoff, and a trace replayed twice."""
+    import tempfile
+
+    from repro_torch.faults import FaultPlan, FaultSpec
+    from repro_torch.obs.report import main as report_main
+    from repro_torch.serving import BatchServer, SLOClass, ServeSession, burst_trace, replay
+
+    t0 = time.perf_counter()
+    model, params, adapter = weights
+    rng = __import__("numpy").random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in rng.integers(256, 513, 6)]
+    with BatchServer(model, params, ecfg, batch=4, adapter=adapter, device=dev) as srv:
+        engine = srv.session.engine
+        rids = [srv.submit(p, 16) for p in prompts]          # the fourth submit flushes
+        first = dict(srv.last_stats)
+        srv.flush()
+        second = dict(srv.last_stats)
+        check(srv.session.engine is engine, "BatchServer built a second engine")
+        batched = [srv.result(r) for r in rids]
+    check((first["real_requests"], first["padded_requests"]) == (4, 0)
+          and (second["real_requests"], second["padded_requests"]) == (2, 2),
+          f"BatchServer flushes: real/padded {first['real_requests']}/"
+          f"{first['padded_requests']}, {second['real_requests']}/{second['padded_requests']}")
+    solo = main_mod._serve(model, params, adapter, ecfg, dev, prompts, 16, slots=4)["outputs"]
+    check(all((a == b).all() for a, b in zip(batched, solo)),
+          "BatchServer tokens differ from the same requests in a ServeSession")
+    print(f"4 layers, BatchServer(batch=4): flushes of 4 and 2 requests (padded 0 and 2), one "
+          f"engine; tokens bit-identical to a ServeSession's", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="router-trace-") as tmp:
+        run = main_mod.run_router_path(cfg, device=dev, n_layers=4, engine_cfg=ecfg,
+                                       weights=weights, solo=True, peek=True, trace_dir=tmp)
+        check(all(run["solo_equal"]), f"4 layers: routed tokens differ from solo sessions' "
+              f"{run['solo_equal']}")
+        check(run["peek_neutral"], "4 layers: affinity scoring changed a replica's cache")
+        print(f"4 layers, router: routes {[q['replica'] for q in run['requests']]}; tokens "
+              f"bit-identical to each replica's arrivals replayed in a fresh solo session; 10 "
+              f"rounds of affinity scores left every cache's stats, LRU stamps and pins as they "
+              f"were", flush=True)
+        for name, path in run["trace_files"].items():
+            print(f"4 layers, router: repro_torch.obs.report over replica {name}'s exported "
+                  f"trace:", flush=True)
+            check(report_main([path]) == 0 and report_main([path, "--check"]) == 0,
+                  f"repro_torch.obs.report rejected replica {name}'s trace")
+    sys.stdout.flush()
+
+    plan = FaultPlan(FaultSpec(seed=0, corrupt_block_rate=0.05))
+    dg = main_mod.run_disagg_path(cfg, device=dev, n_layers=4, engine_cfg=ecfg,
+                                  weights=weights, cache_faults=plan)
+    rq = dg["requeued"]
+    check(rq is not None and rq["rids"] and not any(rq["decode_admitted"])
+          and rq["cache_stats"]["quarantined_blocks"] > 0,
+          f"4 layers, disagg with blocks corrupted at rest: {rq}")
+    check(dg["states"] == ["done"] * 4 and all(dg["tokens_equal"]),
+          f"4 layers, disagg after a corrupt chain: tickets {dg['states']}, tokens equal to "
+          f"the control's {dg['tokens_equal']}")
+    check(all(dg["attempts"][r] == 2 for r in rq["rids"]),
+          f"4 layers, disagg: attempts {dg['attempts']}")
+    print(f"4 layers, disagg with 5 % of published blocks corrupted at rest until the first "
+          f"re-queue: ticket(s) {rq['rids']} re-queued with no decode row admitted "
+          f"({rq['cache_stats']['corrupt_blocks']} checksum failures, "
+          f"{rq['cache_stats']['quarantined_blocks']} blocks quarantined), then every ticket "
+          f"done (attempts {dg['attempts']}) with the control's tokens", flush=True)
+
+    slo = {"interactive": SLOClass("interactive", ttft_s=0.5, tpot_s=0.1),
+           "bulk": SLOClass("bulk", ttft_s=1.5, tpot_s=0.3)}
+    tr = burst_trace(0, bursts=2, burst_size=4, prompt_tokens=(256, 384, 512),
+                     max_new_choices=(8, 16), slo_classes=slo, vocab_size=cfg.vocab_size)
+    blobs = []
+    for _ in range(2):
+        with ServeSession(model, params, dataclasses.replace(ecfg, async_io=False), slots=4,
+                          adapter=adapter, device=dev) as sess:
+            blobs.append(json.dumps(replay(tr, sess), sort_keys=True))
+    check(blobs[0] == blobs[1], "4 layers: two replays of one trace gave different metrics JSON")
+    m = json.loads(blobs[0])
+    print(f"4 layers, trace replay (burst, {m['n_requests']} requests, async_io off) twice: "
+          f"metrics JSON byte-identical ({len(blobs[0])} B; modeled makespan "
+          f"{m['makespan_seconds']:.3f} s, SLO attainment {m['slo_attainment']:.3f}); front-half "
+          f"4-layer checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev) -> tuple:
     """Bit-identity and fault checks at 4 layers (full width), on one set of
     weights shared by every run."""
     from repro_torch.faults import FaultPlan, FaultSpec
@@ -618,9 +964,17 @@ def reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev
           f"checksum failures, {cs['quarantined_blocks']} blocks quarantined, cached tokens "
           f"{[a['cached_tokens'] for a in px['admissions']]}; tokens equal to the control's "
           f"(no cache, no faults); 4-layer checks {time.perf_counter() - t0:.1f} s", flush=True)
+    return weights
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of another tree: its kernel B is built and timed in "
+                         "turns with this tree's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
@@ -629,8 +983,10 @@ def main() -> None:
         from repro_torch.core.engine import EngineConfig
         from repro_torch.core.predictor import select_groups
         from repro_torch.kernels import _build, ops
-        from repro_torch.main_path import (build_weights, run_hybrid_path, run_main_path,
-                                           run_prefix_path)
+        from repro_torch import main_path
+        from repro_torch.main_path import (build_weights, compare_routes, run_disagg_path,
+                                           run_hybrid_path, run_main_path, run_prefix_path,
+                                           run_router_path)
     except ImportError as exc:
         fail(f"the port is not next to this script ({exc})")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -669,6 +1025,11 @@ def main() -> None:
               f"{dev_t}, profiler), plain {e['plain_ms'] * 1e3:.2f} us, bound "
               f"{e['bound_ms'] * 1e3:.2f} us ({e['bound_by']}), library {lib}, max abs err "
               f"{e['max_abs_err']:.3g}  [{card}]", flush=True)
+    wide_attention(ops, dev, card)
+    if args.parent is not None:
+        against_parent(ops, args.parent.resolve(), dev, card)
+    route_phase(compare_routes, dev, card)
+    free_device()
 
     cfg = llama3_8b.config()
     ecfg = EngineConfig(group_size=4, n_select=100, rank=64, reuse_capacity=160,
@@ -704,13 +1065,21 @@ def main() -> None:
           f"{statistics.median(steps) * 1e3 - wait_ms - kern_ms:.1f} ms  [{card}]", flush=True)
     del main_run
     prefix_launches = prefix_phases(run_prefix_path, cfg, ecfg, weights, dev, card)
+    free_device()
+    router_launches = router_phase(run_router_path, cfg, ecfg, weights, dev, card)
+    free_device()
+    disagg_launches = disagg_phase(run_disagg_path, cfg, ecfg, weights, dev, card)
     del weights
     free_device()
 
-    reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev)
+    weights4 = reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev)
+    free_device()
+    front_half_reduced(main_path, cfg, ecfg, weights4, dev, card)
+    del weights4
     free_device()
 
-    path_launches = {LLAMA: launches, PREFIX: prefix_launches,
+    path_launches = {LLAMA: launches, PREFIX: prefix_launches, ROUTER: router_launches,
+                     DISAGG: disagg_launches,
                      ZAMBA: hybrid_phases(run_hybrid_path, zamba2_1p2b.config(), ecfg, dev,
                                           entries, card)}
     for e in entries:

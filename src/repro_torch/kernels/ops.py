@@ -154,7 +154,8 @@ def gather_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """One-token decode attention: ``q [B,H,d]``, ``k/v [B,S,H_kv,d]``
     (token-major, as the KV manager gathers them), ``mask [B,S]`` bool →
-    ``[B,H,d]``.
+    ``[B,H,d]``.  The kernel takes ``H / H_kv <= 8`` and ``head_dim`` a
+    multiple of 4 up to 256.
 
     On a CUDA tensor it is a split-S flash-decode in one kernel launch: each
     block writes its split's partials ``(m, l, acc)`` into scratch allocated
@@ -174,9 +175,9 @@ def gather_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, s, hk, d) or v.shape != k.shape or mask.shape != (b, s):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, mask {tuple(mask.shape)} disagree")
-    if h % hk or h // hk > 8 or d % 4 or d > 128 or s < 1:
+    if h % hk or h // hk > 8 or d % 4 or d > 256 or s < 1:
         raise ValueError(f"{name}: needs H % H_kv == 0, H / H_kv <= 8, "
-                         f"head_dim % 4 == 0, head_dim <= 128 and S >= 1")
+                         f"head_dim % 4 == 0, head_dim <= 256 and S >= 1")
     n_split = gather_attention_splits(s)
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
@@ -192,6 +193,16 @@ def gather_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 gather_attention.launches = 0
+
+
+def gather_attention_occupancy(rep: int, d: int) -> dict:
+    """Kernel B on the current card for ``H / H_kv = rep`` and head_dim
+    ``d``: ``blocks_per_sm`` (what its shared memory and registers allow at
+    once) and ``smem_bytes``, one block's dynamic shared memory."""
+    vals = [ctypes.c_int(0) for _ in range(2)]
+    fn = _fn("gather_attention", "gather_attention_occupancy", [_I, _I, _P, _P])
+    _launch(fn, rep, d, *(ctypes.addressof(v) for v in vals))
+    return dict(zip(("blocks_per_sm", "smem_bytes"), (v.value for v in vals)))
 
 
 # --------------------------------------------------------------------------

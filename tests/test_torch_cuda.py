@@ -24,6 +24,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.main_path import compare_routes
+
+# group selections that differ between the card and the CPU route of the
+# tiny engine (test_engine_card_route_matches_cpu_route)
+EXPECTED_FLIPS = 0
 
 SCORE_SHAPES = [(1, 4, 16, 64, 4), (2, 8, 32, 512, 4), (3, 16, 64, 1000, 4),
                 (1, 4, 16, 130, 8), (2, 32, 8, 256, 16)]
@@ -35,6 +40,12 @@ SCORE_EDGES = [(2, 8, 256, 600, 4), (2, 4, 30, 300, 4), (2, 4, 3, 77, 5),
 # rep = 8 at d = 128, 32 and 64, rep = 3, rep = 1
 ATTN_EDGES = [(2, 8, 8, 64, 1), (2, 8, 1, 128, 33), (3, 16, 2, 32, 4101),
               (3, 8, 1, 64, 405), (2, 6, 2, 32, 97), (2, 32, 32, 64, 65)]
+# past head_dim 128 the kernel goes over the columns in chunks of 128:
+# stablelm-12b's d = 160 (H 32, H_kv 8) at the serving path's S and at S = 1,
+# d = 256 at rep 8 and rep 1 (the largest shared memory), and a last chunk
+# of one and of four float4 columns (d = 132, 144)
+ATTN_WIDE = [(4, 32, 8, 160, 405), (2, 32, 8, 160, 1), (2, 16, 2, 256, 300),
+             (2, 8, 8, 256, 1), (3, 8, 1, 256, 33), (2, 12, 4, 132, 97), (2, 8, 2, 144, 65)]
 
 
 @pytest.fixture
@@ -154,6 +165,37 @@ class TestCudaKernels:
             scale = max(1.0, float(want.abs().max()))
             assert float((got - want).abs().max()) <= 1e-5 * scale, shape
 
+    def test_gather_attention_wide_head_dim(self, cuda_device):
+        """head_dim past 128 (every wide shape in one case: the card-only
+        cases stay few), with a fully masked split in mid-row and a fully
+        masked row, held to the tolerance of the narrower widths; one launch
+        a call, the same bits on a repeated call; d = 260 is refused."""
+        for b, h, hk, d, s in ATTN_WIDE:
+            gen = torch.Generator(device=cuda_device).manual_seed(d + s)
+            q = torch.randn((b, h, d), generator=gen, device=cuda_device)
+            k = torch.randn((b, s, hk, d), generator=gen, device=cuda_device)
+            v = torch.randn((b, s, hk, d), generator=gen, device=cuda_device)
+            mask = torch.rand((b, s), generator=gen, device=cuda_device) > 0.3
+            mask[0, 32:64] = False
+            mask[0, -1] = True
+            mask[-1] = False
+            before = ops.gather_attention.launches
+            got = ops.gather_attention(q, k, v, mask)
+            assert ops.gather_attention.launches == before + 1
+            want = ops.gather_attention_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            shape = (b, h, hk, d, s)
+            assert bool(torch.isfinite(got).all()), shape
+            assert not bool(got[-1].any()), shape
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= 1e-5 * scale, shape
+            assert torch.equal(ops.gather_attention(q, k, v, mask), got), shape
+        t = torch.zeros((1, 2, 260), device=cuda_device)
+        kv = torch.zeros((1, 3, 1, 260), device=cuda_device)
+        with pytest.raises(ValueError, match="head_dim <= 256"):
+            ops.gather_attention(t, kv, kv, torch.ones((1, 3), dtype=torch.bool,
+                                                       device=cuda_device))
+
     def test_gather_attention_is_deterministic_and_resets_its_counters(self, cuda_device):
         """The last block of each head group combines in split order and sets
         its counter back to 0: repeated calls give the same bits."""
@@ -202,3 +244,23 @@ class TestCudaKernels:
                for a in ssd_inputs(7, b=1, nc=1, q=256, h=2, p=8, n=4)]
         with pytest.raises(ValueError, match="Q <= 128"):
             ops.ssd_chunk(*big)
+
+
+@pytest.mark.cuda
+def test_engine_card_route_matches_cpu_route(cuda_device):
+    """The ``device_resident`` engine on the card (kernels A and B) against
+    the same engine on the CPU (their plain versions), on one set of
+    ``tiny_cfg``-shaped weights: the greedy tokens are equal, and the group
+    selections of every step, layer and row are equal but for
+    ``EXPECTED_FLIPS``.  A flip is allowed only as a near-tie: on each side
+    the groups it chose lie above the ones it passed over by no more than
+    the two sides' scores differ, within kernel A's tolerance of 1e-5 of
+    the row's score scale."""
+    run = compare_routes(cuda_device)
+    assert run["launches_card"]["lowrank_group_scores"] > 0
+    assert run["launches_card"]["gather_attention"] > 0
+    assert run["tokens_equal"], (run["tokens_card"], run["tokens_cpu"])
+    assert run["selections"] == 12 * 2 * 2
+    assert len(run["flips"]) == EXPECTED_FLIPS, run["flips"]
+    for flip in run["flips"]:
+        assert max(flip["gap_a"], flip["gap_b"]) <= max(flip["score_diff"], 1e-5), flip

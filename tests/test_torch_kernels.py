@@ -32,7 +32,7 @@ ATTN_ATOL = 1e-5
 SCORE_SHAPES = [(1, 4, 16, 64, 4), (2, 8, 32, 512, 4), (3, 16, 64, 1000, 4),
                 (1, 4, 16, 130, 8), (2, 32, 8, 256, 16)]
 ATTN_SHAPES = [(1, 4, 4, 32, 64), (2, 8, 2, 64, 300), (2, 16, 8, 128, 513),
-               (1, 32, 8, 128, 1024), (1, 20, 20, 64, 96)]
+               (1, 32, 8, 128, 1024), (1, 20, 20, 64, 96), (2, 32, 8, 160, 300)]
 
 
 def _score_inputs(seed, b, h, r, n):
