@@ -8,18 +8,24 @@
    and, per compiled kernel, ptxas's registers, static shared memory,
    stack and spills), and kernel C's dynamic shared memory, blocks per SM
    and waves at the Zamba2 path's shapes;
-2. holds each kernel against its plain PyTorch version on the card, at
-   each main path's shapes and at ragged and edge shapes (kernel C also
-   bitwise equal over 5 repeated calls), and times the kernel, the plain
-   version and (where one exists) one library call with CUDA events at
-   each path's shapes, and the kernel alone with ``torch.profiler``;
-   prints the events' floor (one launch of a trivial fill); checks and
-   times kernel B past head_dim 128 (stablelm-12b's d = 160, and d = 256)
-   and prints its blocks per SM at each width; with ``--parent DIR`` (a
-   checkout of another tree) builds that tree's kernel B and times both in
-   turns at the serving and hybrid paths' shapes; runs the tiny engine on
-   the card and on the CPU and compares every group selection and token
-   (the flipped selections, each with its score gaps);
+2. runs the paper's offline tuner (``tuner.solve``) for OLMoE-1B-7B's dims
+   (b_max 4, s_max 4096, a budget of 256 MiB a batch, disk nvme) and
+   prints its ``TunedParams`` (the rank must be at most 256, kernel A's
+   limit); holds each kernel against its plain PyTorch version on the
+   card, at each main path's shapes (those of paths 8-10 from their seeded
+   prompt lengths and the tuned tuple) and at ragged and edge shapes
+   (kernel C also bitwise equal over 5 repeated calls), and times the
+   kernel, the plain version and (where one exists) one library call with
+   CUDA events at each path's shapes, and the kernel alone with
+   ``torch.profiler``; prints the events' floor (one launch of a trivial
+   fill); checks kernel B past head_dim 128 (stablelm-12b's d = 160, and
+   d = 256; the StableLM path's entry times it) and prints its blocks per
+   SM at each width; with ``--parent DIR`` (a checkout of another tree)
+   builds that tree's kernel B and times both in turns at the serving and
+   hybrid paths' shapes, and does the same for its MoE layer at the OLMoE
+   path's decode and prefill shapes; runs the tiny engine on the card and on the CPU
+   and compares every group selection and token (the flipped selections,
+   each with its score gaps);
 3. drives the first main path: a ``ServeSession`` at Llama-3.1-8B width (all
    32 layers, fp32 random weights from seed 0) answering 6 greedy requests
    of 1024-2048 prompt tokens and 32 new tokens each over 4 slots, and
@@ -85,7 +91,26 @@
    among them, the device's busy share and the host's time alone); then
    generates at 12 blocks with ``async_io`` and ``device_resident`` each
    on and off and requires bit-identical tokens;
-8. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
+8. serves OLMoE-1B-7B at full width (all 16 MoE layers, 64
+   experts top-8, fp32 random weights from seed 0) through a
+   ``ServeSession`` on the tuned ``EngineConfig``: 6 greedy requests of
+   1024-2048 prompt tokens, 32 new each over 4 slots, with the same checks
+   as the first path, the decode step's split, and the expert-read floor
+   of a decode step (every expert's weights, every layer) beside one MoE
+   layer's time at the decode shape; at decode step 8 it takes layer 8's
+   true query and full K and V to the host and prints each baseline's
+   ``FidelityResult`` (FlexGen, InfiniGen, InfiniGen*, ShadowKV, Loki,
+   KVSwap at a budget of M·G tokens) and the recall of the engine's own
+   selection against the exact group scores (recalls and masses in [0,
+   1], FlexGen's recall 1 and output error below 1e-6);
+9. serves StableLM-2-12B at full width (all 40 layers, head_dim 160) with
+   the first path's ``EngineConfig``: 4 greedy requests of 1024-2048
+   tokens, 16 new each over 4 slots, the same checks (kernel B launched at
+   d = 160 once per layer per decode step);
+10. serves Granite-8B, Qwen3-32B and Chameleon-34B at full width, cut to 2
+   layers each: 2 greedy requests of 512-1024 tokens, 8 new each over 2
+   slots (kernel B at rep 4, 8 and 8), the same checks;
+11. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
    path that runs it (``path``): its time, bound, plain and library times
    at that path's shapes, and ``launches`` in that path's main run, counted
    from 0 just before it; then, last, the ``{"ok": true, ...}`` line.
@@ -123,6 +148,18 @@ LLAMA, ZAMBA = "llama3-8b", "zamba2-1.2b"      # the serving and hybrid paths
 PREFIX = "llama3-8b-prefix"                    # the serving path over the prefix cache
 ROUTER = "llama3-8b-router"                    # two replicas behind the KV-affinity router
 DISAGG = "llama3-8b-disagg"                    # a prefill engine handing off to a decode session
+OLMOE, STABLELM = "olmoe-1b-7b", "stablelm-12b"  # the MoE path and kernel B at head_dim 160
+DENSE_2L = ("granite-8b", "qwen3-32b", "chameleon-34b")   # full width, 2 layers each
+# the paths served after the hybrid one (run_main_path's arguments; n_layers
+# None = every layer): slots, requests, prompt lengths, new tokens
+SERVED = {OLMOE: dict(n_layers=None, slots=4, n_requests=6, prompt_len=(1024, 2048), max_new=32),
+          STABLELM: dict(n_layers=None, slots=4, n_requests=4, prompt_len=(1024, 2048),
+                         max_new=16),
+          **{arch: dict(n_layers=2, slots=2, n_requests=2, prompt_len=(512, 1024), max_new=8)
+             for arch in DENSE_2L}}
+# the tuner's inputs on the OLMoE path: batch 4, 4096 tokens, 256 MiB a batch
+OLMOE_TUNE = dict(b_max=4, s_max=4096, budget_bytes=256 << 20, disk="nvme")
+OLMOE_PROBE = (8, 8)                           # decode step 8, layer 8: the baselines' tensors
 # stablelm-12b's attention (configs/stablelm_12b.py): kernel B at head_dim 160
 STABLELM_ATTN = (4, 32, 8, 160, 405)
 # each kernel's source and the TPU kernel it replaces
@@ -329,6 +366,12 @@ def time_attention(ops, dev, gen, flush, b, h, hk, d, s, mask) -> dict:
                 q4, k4, v4, attn_mask=m4, enable_gqa=hk != h), flush)}
 
 
+def kernel_entry(name, path, err, timed) -> dict:
+    return {"name": name, "path": path, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{SOURCES[name][0]}",
+            "replaces": SOURCES[name][1], "max_abs_err": err, **timed}
+
+
 def kernel_checks(ops, select_groups, dev) -> list[dict]:
     """The three kernels against their plain versions at each main path's
     shapes and at ragged shapes, then timed at each path's shapes: one
@@ -339,9 +382,7 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
     entries = []
 
     def entry(name, path, err, timed):
-        entries.append({"name": name, "path": path, "route": "cuda",
-                        "source": f"src/repro_torch/kernels/csrc/{SOURCES[name][0]}",
-                        "replaces": SOURCES[name][1], "max_abs_err": err, **timed})
+        entries.append(kernel_entry(name, path, err, timed))
 
     # kernel A: B=4, H=32, r=64, N=4096 (k_lr capacity), G=4, M=100 on every
     # path; valid lengths: the Llama path's prompts, the Zamba2 path's
@@ -438,11 +479,10 @@ def attention_inputs(dev, gen, b, h, hk, d, s):
 
 def wide_attention(ops, dev, card) -> None:
     """Kernel B past head_dim 128: held against its plain version at
-    stablelm-12b's attention shape (and S = 1) and at d = 256, timed at
-    stablelm-12b's shape; its blocks per SM at each path's (rep, d)."""
+    stablelm-12b's attention shape (and S = 1) and at d = 256, bitwise
+    repeatable at stablelm-12b's shape (the StableLM path times it); its
+    blocks per SM at each path's (rep, d)."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    b, h, hk, d, s = STABLELM_ATTN
     err = 0.0
     for shape in [STABLELM_ATTN, (2, 32, 8, 160, 1), (2, 16, 2, 256, 300), (3, 8, 1, 256, 33)]:
         bb, _, _, _, ss = shape
@@ -455,14 +495,11 @@ def wide_attention(ops, dev, card) -> None:
     first = ops.gather_attention(q, k, v, mask)
     check(all(torch.equal(ops.gather_attention(q, k, v, mask), first) for _ in range(5)),
           "kernel B at d = 160: repeated calls differ in their bits")
-    t = time_attention(ops, dev, gen, flush, b, h, hk, d, s, mask)
-    print(f"kernel gather_attention at stablelm-12b's attention shape (B {b}, H {h}, H_kv {hk}, "
-          f"d {d}, S {s}): {t['ms'] * 1e3:.2f} us (kernel alone {t['device_ms'] * 1e3:.2f} us), "
-          f"plain {t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
-          f"({t['bound_by']}), library {t['library_ms'] * 1e3:.2f} us, max abs err {err:.3g} "
-          f"(d 160 and 256, S 1-405, masked splits and rows)  [{card}]")
+    print(f"kernel gather_attention past head_dim 128: max abs err {err:.3g} against its plain "
+          f"version (d 160 and 256, S 1-405, masked splits and rows); bitwise repeatable at "
+          f"stablelm-12b's attention shape {STABLELM_ATTN}  [{card}]")
     occ = {(rep, dd): ops.gather_attention_occupancy(rep, dd)
-           for rep, dd in ((4, 128), (1, 64), (4, 160), (8, 256))}
+           for rep, dd in ((4, 128), (1, 64), (4, 160), (8, 128), (8, 256))}
     print("kernel gather_attention blocks per SM (dynamic shared memory a block): " + "; ".join(
         f"rep {rep}, d {dd}: {o['blocks_per_sm']} ({o['smem_bytes']} B)"
         for (rep, dd), o in occ.items()), flush=True)
@@ -518,6 +555,44 @@ def against_parent(ops, parent: Path, dev, card) -> None:
         print(f"kernel gather_attention at {path}'s shapes against the parent tree, in turns "
               f"(parent, this, this, parent): {', '.join(f'{t * 1e3:.2f}' for t in turns)} us; "
               f"bit-equal outputs  [{card}]", flush=True)
+    parent_moe(parent, dev, flush, card)
+
+
+def parent_moe(parent: Path, dev, flush, card) -> None:
+    """One OLMoE-1B-7B MoE layer (``layers.moe``) of this tree and of the
+    parent's, timed in turns (parent, this, this, parent) with CUDA events
+    at the OLMoE path's decode shape (B 4, S 1) and one prefill's (B 1,
+    S 2048), on the same random weights; the two must agree within 1e-5 of
+    the output's largest magnitude."""
+    import importlib.util
+
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_layers", parent / "src" / "repro_torch" / "models" / "layers.py")
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    if not hasattr(old, "moe"):
+        print("the parent tree has no MoE layer: nothing to time against it", flush=True)
+        return
+    cfg = registry.get(OLMOE)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p = L.init_moe(generator=gen, device=dev, d_model=cfg.d_model, d_ff=cfg.moe_d_ff,
+                   n_experts=cfg.n_experts)
+    kw = dict(top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+    for b, s in ((SERVED[OLMOE]["slots"], 1), (1, 2048)):
+        x = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
+        y_old, y_new = old.moe(p, x, **kw)[0], L.moe(p, x, **kw)[0]
+        err = float((y_old - y_new).abs().max())
+        check(err <= 1e-5 * max(1.0, float(y_old.abs().max())),
+              f"the MoE layer at (B {b}, S {s}) differs from the parent's by {err}")
+        turns = [device_ms(lambda fn=fn: fn(p, x, **kw), flush)
+                 for fn in (old.moe, L.moe, L.moe, old.moe)]
+        print(f"{OLMOE} MoE layer at (B {b}, S {s}) against the parent tree, in turns (parent, "
+              f"this, this, parent): {', '.join(f'{t:.3f}' for t in turns)} ms; bit-equal "
+              f"{torch.equal(y_old, y_new)}, max abs diff {err:.3g}  [{card}]", flush=True)
+    del p, x, y_old, y_new
 
 
 def route_phase(compare_routes, dev, card) -> None:
@@ -967,19 +1042,192 @@ def reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev
     return weights
 
 
+def print_entry(e: dict, card: str) -> None:
+    lib = "-" if e["library_ms"] is None else f"{e['library_ms'] * 1e3:.2f} us"
+    dev_t = "-" if e["device_ms"] is None else f"{e['device_ms'] * 1e3:.2f} us"
+    print(f"kernel {e['name']} at {e['path']}'s shapes: {e['ms'] * 1e3:.2f} us (kernel alone "
+          f"{dev_t}, profiler), plain {e['plain_ms'] * 1e3:.2f} us, bound "
+          f"{e['bound_ms'] * 1e3:.2f} us ({e['bound_by']}), library {lib}, max abs err "
+          f"{e['max_abs_err']:.3g}  [{card}]", flush=True)
+
+
+def path_entries(ops, select_groups, dev, path, prompt_lens, ecfg, *, h, hk, d, slots,
+                 max_new) -> list[dict]:
+    """Kernels A and B at one served path's shapes, held against their plain
+    versions and timed, one entry each: B = the slots, the model's heads and
+    head_dim, the engine's rank, G and M, N = the compressed cache's
+    capacity, each row's valid length the first prompts' groups halfway
+    through their new tokens, S = M·G + G + 1."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    g, m, r = ecfg.group_size, ecfg.n_select, ecfg.rank
+    n = -(-ecfg.max_seq // g) * g
+    valid = [min(n, (p + max_new // 2) // g * g) for p in prompt_lens[:slots]]
+    err_a = check_scores(ops, select_groups, dev, gen, slots, h, r, n, g, valid, m)
+    s = m * g + g + 1
+    mask = torch.rand((slots, s), generator=gen, device=dev) > 0.2
+    mask[:, -1] = True
+    err_b = check_attention(ops, dev, gen, slots, h, hk, d, s, mask)
+    return [kernel_entry("lowrank_group_scores", path, err_a,
+                         time_scores(ops, dev, gen, flush, slots, h, r, n, g, valid)),
+            kernel_entry("gather_attention", path, err_b,
+                         time_attention(ops, dev, gen, flush, slots, h, hk, d, s, mask))]
+
+
+def served_entries(main_path, registry, ecfgs, ops, select_groups, dev) -> list[dict]:
+    """The kernel entries of the paths served after the hybrid one
+    (``SERVED``), at each path's shapes, taken before any path runs (their
+    prompt lengths come from ``main_path.main_prompts``, as the runs draw
+    them)."""
+    out = []
+    for path, kw in SERVED.items():
+        cfg = registry.get(path)
+        _, prompts = main_path.main_prompts(cfg, n_requests=kw["n_requests"],
+                                            prompt_len=kw["prompt_len"])
+        out += path_entries(ops, select_groups, dev, path, [len(p) for p in prompts],
+                            ecfgs[path], h=cfg.n_heads, hk=cfg.n_kv_heads, d=cfg.head_dim,
+                            slots=kw["slots"], max_new=kw["max_new"])
+    return out
+
+
+def served_run(main_path, registry, path, ecfg, dev, **extra) -> tuple:
+    """``run_main_path`` on ``path`` as ``SERVED`` sizes it, with every
+    request completed with its new tokens, finite logits, the depth served,
+    and kernels A and B launched once per layer per decode step."""
+    kw = SERVED[path]
+    cfg = registry.get(path)
+    run = main_path.run_main_path(cfg, device=dev, engine_cfg=ecfg, **kw, **extra)
+    n_layers = kw["n_layers"] or cfg.n_layers
+    check(run["n_layers"] == n_layers, f"{path} path ran {run['n_layers']} layers")
+    outs = run["outputs"]
+    check(len(outs) == kw["n_requests"]
+          and all(o is not None and len(o) == kw["max_new"] for o in outs),
+          f"{path} path: not every request completed with {kw['max_new']} tokens")
+    check(run["logits_finite"], f"non-finite logits on the {path} path")
+    for kernel, n in run["launches"].items():
+        check(n == run["decode_steps"] * n_layers,
+              f"{path} path: {kernel} launched {n} times, expected {run['decode_steps']} "
+              f"steps x {n_layers}")
+    return cfg, run
+
+
+def served_report(run, name: str, entries, card: str, t0: float) -> float:
+    """Print a served path's decode-step split (wait on group reads, kernels
+    A and B at its shapes, the rest), tokens/s and peak memory; returns the
+    step median in ms."""
+    walls = run["decode_step_wall_seconds"]
+    med = statistics.median(walls) * 1e3
+    wait_ms = statistics.median(run["decode_step_io_wait_seconds"]) * 1e3
+    kern_ms = step_kernels_ms(entries, name, run["launches"], run["decode_steps"])
+    print(f"{name} path: {run['n_layers']} layers, {len(run['outputs'])} requests (prompts "
+          f"{run['prompt_lens']}), {run['decode_steps']} decode steps, launches "
+          f"{run['launches']}, total {time.perf_counter() - t0:.1f} s  [{card}]")
+    print(f"{name} path: decode step median {med:.1f} ms = wait on group reads {wait_ms:.1f} ms "
+          f"+ kernels A, B {kern_ms:.2f} ms + rest {med - wait_ms - kern_ms:.1f} ms over "
+          f"{len(walls)} steps without admissions; {run['tokens_per_s']:.1f} tokens/s over the "
+          f"drain ({run['wall_seconds']:.1f} s, prefills included); peak device memory "
+          f"{run['peak_memory_bytes'] / 2**30:.2f} GiB  [{card}]", flush=True)
+    return med
+
+
+def tuner_phase(main_path, registry, card):
+    """The paper's offline tuner for OLMoE-1B-7B's dims; returns the tuned
+    tuple and the engine parameters the OLMoE path serves with."""
+    cfg = registry.get(OLMOE)
+    tuned, ecfg = main_path.tuned_engine_config(cfg, **OLMOE_TUNE, device_resident=True,
+                                                async_io=True)
+    print(f"tuner: {OLMOE} (dims {dataclasses.asdict(main_path.model_dims(cfg))}, "
+          f"{cfg.n_layers} layers), b_max {OLMOE_TUNE['b_max']}, s_max {OLMOE_TUNE['s_max']}, "
+          f"budget {OLMOE_TUNE['budget_bytes'] >> 20} MiB a batch, disk {OLMOE_TUNE['disk']}, "
+          f"compute model jetson-orin-agx: TunedParams {json.dumps(dataclasses.asdict(tuned))}; "
+          f"engine reuse_capacity {ecfg.reuse_capacity} (tuned {tuned.reuse_capacity})",
+          flush=True)
+    check(tuned.rank <= 256, f"the tuned rank {tuned.rank} is past kernel A's limit of 256")
+    return tuned, ecfg
+
+
+def moe_phase(main_path, registry, ecfg, entries, dev, card) -> dict:
+    """OLMoE-1B-7B at full width on the tuned engine parameters, the
+    expert-read floor of its decode step, and the paper's baselines on one
+    decode step's tensors; returns the run's launches."""
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    cfg = registry.get(OLMOE)
+    weights = main_path.build_weights(cfg, device=dev, rank=ecfg.rank)
+    _, run = served_run(main_path, registry, OLMOE, ecfg, dev, weights=weights,
+                        probe=OLMOE_PROBE)
+    med = served_report(run, OLMOE, entries, card, t0)
+    # the reference's dispatch runs every expert at S = 1 (capacity 1), so a
+    # decode step reads every expert's weights in every layer
+    moe_p = weights[1]["blocks"][0]["moe"]
+    expert_bytes = cfg.n_layers * sum(moe_p[w].numel() * 4 for w in ("w_gate", "w_up", "w_down"))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    x = torch.randn((SERVED[OLMOE]["slots"], 1, cfg.d_model), device=dev)
+    layer_ms = device_ms(lambda: L.moe(moe_p, x, top_k=cfg.moe_top_k,
+                                       capacity_factor=cfg.moe_capacity_factor), flush)
+    print(f"{OLMOE} path: a decode step reads every expert of every layer: "
+          f"{expert_bytes / 1e9:.2f} GB, floor {expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+          f"3.35 TB/s; one MoE layer at the decode shape (B {x.shape[0]}, S 1) {layer_ms:.3f} ms "
+          f"on the card, x {cfg.n_layers} = {layer_ms * cfg.n_layers:.2f} ms of the {med:.1f} ms "
+          f"step  [{card}]", flush=True)
+    del weights, moe_p, x, flush
+    probe = run["probe"]
+    check(probe is not None and "q" in probe and "ids" in probe,
+          f"{OLMOE} path: decode step {OLMOE_PROBE[0]} layer {OLMOE_PROBE[1]} was not probed")
+    fid = main_path.probe_fidelity(probe, group_size=ecfg.group_size, n_select=ecfg.n_select,
+                                   rank=ecfg.rank)
+    print(f"baselines: {OLMOE} decode step {fid['step']}, layer {fid['layer']}, row "
+          f"{fid['row']} ({fid['n_tokens']} tokens of context), budget {fid['budget_tokens']} "
+          f"tokens (M·G); the engine's own selection: recall {fid['recall']:.4f} of the exact "
+          f"top-{ecfg.n_select} groups over rows {fid['rows']}", flush=True)
+    for name, r in fid["fidelity"].items():
+        print(f"baselines: {name}: {json.dumps(r)}")
+        # the masses are float64 sums of softmax weights: 1 + rounding at most
+        check(0.0 <= r["recall"] <= 1.0 and -1e-12 <= r["mass"] <= 1.0 + 1e-12,
+              f"baseline {name}: recall {r['recall']} or mass {r['mass']} outside [0, 1]")
+    check(0.0 <= fid["recall"] <= 1.0, f"engine recall {fid['recall']} outside [0, 1]")
+    flex = fid["fidelity"]["flexgen"]
+    check(flex["recall"] == 1.0 and flex["out_err"] < 1e-6,
+          f"FlexGen (every token): recall {flex['recall']}, output error {flex['out_err']}")
+    sys.stdout.flush()
+    return run["launches"]
+
+
+def dense_phases(main_path, registry, ecfg, entries, dev, card) -> dict:
+    """StableLM-2-12B at full width (40 layers, head_dim 160), then
+    Granite-8B, Qwen3-32B and Chameleon-34B at full width cut to 2 layers,
+    each on the first path's engine parameters; returns each run's
+    launches."""
+    launches = {}
+    for path in (STABLELM, *DENSE_2L):
+        t0 = time.perf_counter()
+        cfg, run = served_run(main_path, registry, path, ecfg, dev)
+        if SERVED[path]["n_layers"]:
+            print(f"{path} path (GQA ratio {cfg.n_heads // cfg.n_kv_heads}, head_dim "
+                  f"{cfg.head_dim}, qk_norm {cfg.qk_norm}, tied embeddings "
+                  f"{cfg.tie_embeddings}, rope theta {cfg.rope_theta:g}; full width, depth cut "
+                  f"to {run['n_layers']} of {cfg.n_layers}):", flush=True)
+        served_report(run, path, entries, card, t0)
+        launches[path] = run["launches"]
+        del run
+        free_device()
+    return launches
+
+
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of another tree: its kernel B is built and timed in "
-                         "turns with this tree's")
+                    help="a checkout of another tree: its kernel B and MoE layer are "
+                         "timed in turns with this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.configs import llama3_8b, zamba2_1p2b
+        from repro_torch.configs import llama3_8b, registry, zamba2_1p2b
         from repro_torch.core.engine import EngineConfig
         from repro_torch.core.predictor import select_groups
         from repro_torch.kernels import _build, ops
@@ -1013,18 +1261,18 @@ def main() -> None:
           f"{blocks / (sms * occ['blocks_per_sm']):.2f} waves on {sms} SMs", flush=True)
 
     entries = kernel_checks(ops, select_groups, dev)
+    ecfg = EngineConfig(group_size=4, n_select=100, rank=64, reuse_capacity=160,
+                        max_seq=4096, disk="nvme", device_resident=True, async_io=True)
+    _, olmoe_ecfg = tuner_phase(main_path, registry, card)
+    entries += served_entries(main_path, registry, {OLMOE: olmoe_ecfg, **dict.fromkeys(
+        (STABLELM, *DENSE_2L), ecfg)}, ops, select_groups, dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     tiny = torch.empty(1, device=dev)
     print(f"timing floor: one launch of a one-element fill {device_ms(tiny.zero_, flush) * 1e3:.2f}"
           f" us (the events and launch around every time below)  [{card}]")
     del flush
     for e in entries:
-        lib = "-" if e["library_ms"] is None else f"{e['library_ms'] * 1e3:.2f} us"
-        dev_t = "-" if e["device_ms"] is None else f"{e['device_ms'] * 1e3:.2f} us"
-        print(f"kernel {e['name']} at {e['path']}'s shapes: {e['ms'] * 1e3:.2f} us (kernel alone "
-              f"{dev_t}, profiler), plain {e['plain_ms'] * 1e3:.2f} us, bound "
-              f"{e['bound_ms'] * 1e3:.2f} us ({e['bound_by']}), library {lib}, max abs err "
-              f"{e['max_abs_err']:.3g}  [{card}]", flush=True)
+        print_entry(e, card)
     wide_attention(ops, dev, card)
     if args.parent is not None:
         against_parent(ops, args.parent.resolve(), dev, card)
@@ -1032,8 +1280,6 @@ def main() -> None:
     free_device()
 
     cfg = llama3_8b.config()
-    ecfg = EngineConfig(group_size=4, n_select=100, rank=64, reuse_capacity=160,
-                        max_seq=4096, disk="nvme", device_resident=True, async_io=True)
     t0 = time.perf_counter()
     weights = build_weights(cfg, device=dev, rank=ecfg.rank)
     main_run = run_main_path(cfg, device=dev, engine_cfg=ecfg, weights=weights)
@@ -1082,6 +1328,10 @@ def main() -> None:
                      DISAGG: disagg_launches,
                      ZAMBA: hybrid_phases(run_hybrid_path, zamba2_1p2b.config(), ecfg, dev,
                                           entries, card)}
+    free_device()
+    path_launches[OLMOE] = moe_phase(main_path, registry, olmoe_ecfg, entries, dev, card)
+    free_device()
+    path_launches.update(dense_phases(main_path, registry, ecfg, entries, dev, card))
     for e in entries:
         e["launches"] = path_launches[e["path"]][e["name"]]
     print(json.dumps({"kernels": [{key: e[key] for key in (

@@ -20,7 +20,13 @@ ALL_ARCHS = ARCHS + ("qwen3-8b",)
 # the archs whose config the port holds
 _MODULES = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
+    "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
 }
 

@@ -412,6 +412,10 @@ class KVSwapEngine:
         self._dev_ready = False
         self._h2d_step = 0
         self._step_active = np.zeros(batch, dtype=bool)
+        # an observer of decode: ``layer_hook(layer, x, pos, table)`` is
+        # called as each KV layer's attention starts, with its input, the
+        # rows' positions and the layer's MappingTable (this step's selection)
+        self.layer_hook = None
 
     # -- per-row lifecycle views ----------------------------------------
     @property
@@ -993,6 +997,27 @@ class KVSwapEngine:
                                            device=self.device)
         self._dev_ready = True
 
+    def layer_context(self, layer: int, bi: int) -> tuple[np.ndarray, np.ndarray, int]:
+        """Row ``bi``'s K and V at model layer ``layer`` (a KV layer) before
+        the decoding token's own, on the host as float32 ``[n, H_kv, d]``:
+        the groups on disk, then the rolling tail; and the count of tokens
+        on disk.  The disk is read without a charge to the accountant."""
+        j, g = self._kv_index[layer], self.cfg.group_size
+        n_disk = int(self.row_valid[bi]) // g * g
+        k_disk, v_disk = self.store.peek_run(j, bi, 0, n_disk // g)
+        fill = int(self.managers[j].rolling.fills[bi])
+        if self.device_resident and self._dev_ready:
+            k_tail, v_tail = (t[bi, :fill].cpu().numpy() for t in (self._tail_k[j], self._tail_v[j]))
+        else:
+            k_tail, v_tail = self.rolling[j].k[bi, :fill], self.rolling[j].v[bi, :fill]
+        if n_disk + fill != int(self.row_seq[bi]):
+            raise RuntimeError(f"row {bi}: {n_disk} tokens on disk + {fill} in the tail != "
+                               f"{int(self.row_seq[bi])} seen")
+        tail = k_disk.shape[-2:]
+        k, v = (np.concatenate([a.reshape(n_disk, *tail), b]).astype(np.float32)
+                for a, b in ((k_disk, k_tail), (v_disk, v_tail)))
+        return k, v, n_disk
+
     # -- per-layer pieces shared by both modes --------------------------
     def _predict_for(self, layer: int, j: int, pred_src: torch.Tensor, pos: torch.Tensor,
                      valid: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
@@ -1028,6 +1053,8 @@ class KVSwapEngine:
 
     def _kv_layer(self, layer: int, j: int, x: torch.Tensor, pos: torch.Tensor, table,
                   t_compute: list[float], flush_rows: list) -> torch.Tensor:
+        if self.layer_hook is not None:
+            self.layer_hook(layer, x, pos, table)
         obs = self.obs
         if obs.enabled:
             a0 = obs.tracer.now_wall()

@@ -32,9 +32,17 @@ class LowRankAdapter:
         return self.a.shape[1]
 
     @property
+    def sigma(self) -> float:
+        """Compression ratio σ = H_k·d / r."""
+        return self.a.shape[0] / self.a.shape[1]
+
+    @property
     def per_head(self) -> torch.Tensor:
         """A reshaped to ``[H_k, d, r]`` — A_{q(h)} slices of Eq. 1."""
         return self.a.reshape(self.n_kv_heads, self.head_dim, self.rank)
+
+    def nbytes(self) -> int:
+        return self.a.numel() * self.a.element_size()
 
 
 def fit_adapter(k_calib: np.ndarray, *, rank: int, device=None,
@@ -61,3 +69,26 @@ def compress_k(k: torch.Tensor, adapter: LowRankAdapter) -> torch.Tensor:
     """``K_lr = Flatten(K) · A``.  ``k``: ``[..., N, H_k, d]`` → ``[..., N, r]``."""
     *lead, n, hk, d = k.shape
     return k.reshape(*lead, n, hk * d) @ adapter.a.to(k.dtype)
+
+
+def append_compressed(k_lr: torch.Tensor, new_k: torch.Tensor,
+                      adapter: LowRankAdapter) -> torch.Tensor:
+    """Append freshly generated tokens' compressed keys (rolling-buffer flush).
+
+    ``k_lr``: ``[B, N, r]``; ``new_k``: ``[B, G, H_k, d]`` → ``[B, N+G, r]``.
+    """
+    return torch.cat([k_lr, compress_k(new_k, adapter)], dim=-2)
+
+
+def reconstruction_error(k, adapter: LowRankAdapter) -> float:
+    """Relative Frobenius reconstruction error of ``k [N, H_k, d]`` or ``[B,
+    N, H_k, d]`` through the adapter, in numpy float64 as the reference
+    computes it."""
+    k = np.asarray(k, dtype=np.float64)
+    if k.ndim == 4:
+        k = k.reshape(-1, k.shape[2], k.shape[3])
+    flat = k.reshape(k.shape[0], -1)
+    a = adapter.a.detach().cpu().numpy().astype(np.float64)
+    rec = (flat @ a) @ a.T
+    denom = np.linalg.norm(flat) + 1e-12
+    return float(np.linalg.norm(flat - rec) / denom)

@@ -514,14 +514,22 @@ class KVDiskStore:
         gap groups a gap-coalescing scheduler reads through are real bytes
         moved, so they are billed too.
         """
+        k, v = self.peek_run(layer, batch_idx, start, count)
+        if self.accountant is not None:
+            self.accountant.charge_read(count * self.group_nbytes, 1)
+        return k, v
+
+    def peek_run(self, layer: int, batch_idx: int, start: int,
+                 count: int) -> tuple[np.ndarray, np.ndarray]:
+        """:meth:`read_run`'s read without its charge to the accountant:
+        for an observer outside the engine's I/O (the modeled clock and the
+        byte counts stay as if it had not looked)."""
         if start < 0 or start + count > self.max_groups:
             raise IndexError(
                 f"run [{start}, {start + count}) outside [0, {self.max_groups})")
         blk = np.asarray(self._mm[layer, batch_idx, start:start + count])
         if self.quant_bits == 8:
             blk = self._dequant(blk, self._scales[layer, batch_idx, start:start + count])
-        if self.accountant is not None:
-            self.accountant.charge_read(count * self.group_nbytes, 1)
         return blk[:, :, 0], blk[:, :, 1]
 
     def read_groups(self, layer: int, batch_idx: int, group_ids: Sequence[int],

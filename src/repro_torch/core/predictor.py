@@ -15,13 +15,19 @@ would fetch different groups).
 :func:`fused_predict` here is the op-by-op composition; the engine's hot
 path is :func:`repro_torch.kernels.fused_predict.fused_predict`, which
 replaces scoring + head sum + group max with one kernel.
+:func:`predict_groups` (from the previous layer's input, no RoPE),
+:func:`exact_group_scores` (the oracle from the true query and full K) and
+:func:`recall_at_m` are the offline evaluation API, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from repro_torch.core.lowrank import LowRankAdapter
 
 NEG_INF = -1e30
 
@@ -46,6 +52,12 @@ def lowrank_queries_per_head(q: torch.Tensor, per_head_a: torch.Tensor) -> torch
     return torch.einsum("bhd,hdr->bhr", q, a_for_head)
 
 
+def lowrank_queries(q: torch.Tensor, adapter: LowRankAdapter) -> torch.Tensor:
+    """``Q_h A_{q(h)}`` for every query head → ``[B, H, r]`` (the reference
+    also takes ``n_heads`` and drops it: ``q.shape[1]`` is the head count)."""
+    return lowrank_queries_per_head(q, adapter.per_head)
+
+
 def token_scores(q_lr: torch.Tensor, k_lr: torch.Tensor) -> torch.Tensor:
     """Approximate attention scores, summed over heads → ``[B, N]``."""
     return torch.einsum("bhr,bnr->bhn", q_lr, k_lr).sum(dim=1)
@@ -55,15 +67,16 @@ def group_scores(scores: torch.Tensor, group_size: int,
                  valid_len: torch.Tensor | None = None) -> torch.Tensor:
     """Reduce-max over groups of ``G`` consecutive tokens → ``[B, N // G]``.
 
-    Tokens at or past ``valid_len [B]`` are masked to ``NEG_INF``.  ``N``
-    must be a multiple of ``G``.
+    Tokens at or past ``valid_len`` (``[B]`` or one count for every row) are
+    masked to ``NEG_INF``.  ``N`` must be a multiple of ``G``.
     """
     b, n = scores.shape
     if n % group_size:
         raise ValueError(f"token count {n} not a multiple of group size {group_size}")
     if valid_len is not None:
         pos = torch.arange(n, device=scores.device)[None, :]
-        scores = scores.masked_fill(pos >= valid_len.reshape(-1, 1), NEG_INF)
+        vl = torch.as_tensor(valid_len, device=scores.device).reshape(-1, 1)
+        scores = scores.masked_fill(pos >= vl, NEG_INF)
     return scores.reshape(b, n // group_size, group_size).amax(dim=-1)
 
 
@@ -88,3 +101,47 @@ def fused_predict(q: torch.Tensor, per_head_a: torch.Tensor, k_lr: torch.Tensor,
     q_lr = lowrank_queries_per_head(q, per_head_a)
     gs = group_scores(token_scores(q_lr, k_lr), group_size, valid_len)
     return select_groups(gs, n_select)
+
+
+def predict_groups(x: torch.Tensor, wq: torch.Tensor, adapter_a: torch.Tensor,
+                   k_lr: torch.Tensor, valid_len: torch.Tensor,
+                   cfg: PredictorConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """End-to-end prediction from the previous layer's input ``x [B,
+    d_model]`` through layer *i*'s ``wq [d_model, H·d]`` (no norm, no RoPE,
+    as the reference), the adapter ``[H_k·d, r]`` and ``k_lr [B, N, r]``
+    (``N`` a multiple of ``G``) → ``(group_ids [B, M], mask)``.  Plain op by
+    op: it is not on the engine's decode path."""
+    b = x.shape[0]
+    d = adapter_a.shape[0] // cfg.n_kv_heads
+    q = (x @ wq).reshape(b, cfg.n_heads, d)
+    adapter = LowRankAdapter(a=adapter_a, n_kv_heads=cfg.n_kv_heads, head_dim=d)
+    scores = token_scores(lowrank_queries(q, adapter), k_lr)
+    return select_groups(group_scores(scores, cfg.group_size, valid_len), cfg.n_select)
+
+
+def exact_group_scores(q: torch.Tensor, k: torch.Tensor, group_size: int,
+                       valid_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Oracle group scores from the true query ``q [B, H, d]`` and the full
+    K cache ``k [B, N, H_k, d]`` (head-summed exact scores)."""
+    b, h, d = q.shape
+    hk = k.shape[2]
+    q_g = q.reshape(b, hk, h // hk, d)
+    scores = torch.einsum("bkgd,bnkd->bkgn", q_g, k).sum(dim=(1, 2))
+    return group_scores(scores, group_size, valid_len)
+
+
+def recall_at_m(pred_ids, oracle_ids, mask) -> float:
+    """Fraction of oracle top-M groups recovered by the predictor (rows'
+    ids under ``mask``; tensors or arrays, on any device)."""
+    def host(t):
+        return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+    pred, orac, msk = host(pred_ids), host(oracle_ids), host(mask)
+    hits = total = 0
+    for bi in range(pred.shape[0]):
+        p = set(pred[bi][msk[bi]].tolist())
+        o = set(orac[bi][msk[bi]].tolist())
+        if o:
+            hits += len(p & o)
+            total += len(o)
+    return hits / max(total, 1)

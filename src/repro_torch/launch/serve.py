@@ -8,8 +8,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke \\
         --engine disk --prompt-len 96 --gen-len 32
 
-``--device`` defaults to the CUDA card; pass ``--device cpu`` to run on the
-CPU.  Weights are random, from a seeded ``torch.Generator``.
+``--arch`` takes every arch of the registry except ``whisper-large-v3`` and
+``xlstm-1.3b`` (dense, MoE and the hybrid).  ``--device`` defaults to the
+CUDA card; pass ``--device cpu`` to run on the CPU.  Weights are random,
+from a seeded ``torch.Generator``.
 """
 
 from __future__ import annotations

@@ -35,6 +35,13 @@ blocks (Zamba2), which ``ServeSession`` refuses: a batch of
 seeded prompts through ``KVSwapEngine.generate``, whose prefill runs every
 Mamba2 layer's chunked SSD (kernel C) and whose decode runs kernels A and B
 on the attention layers only.
+
+:func:`tuned_engine_config` runs the paper's offline tuner for a config and
+turns its tuple into an ``EngineConfig``; ``run_main_path(probe=...)``
+captures one decode step's true query and full K and V at one layer, with
+the engine's own selection there, and :func:`probe_fidelity` scores the
+paper's baselines and the engine's selection on them.  Any config the
+registry builds, dense or MoE, serves through :func:`run_main_path`.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.cache import PrefixCache, PrefixCacheConfig
+from repro_torch.core import hardware, tuner
 from repro_torch.core.engine import EngineConfig, KVSwapEngine
 from repro_torch.core.lowrank import fit_adapter
 from repro_torch.device import resolve
@@ -140,6 +148,45 @@ def _peak(dev: torch.device):
     return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
 
 
+@contextlib.contextmanager
+def _probed(engine: KVSwapEngine, probe: tuple[int, int] | None, dev: torch.device):
+    """With ``probe = (step, layer)``: as the engine's decode step ``step``
+    (counted from 0) enters model layer ``layer``'s attention, take to the
+    host the true query (the layer's input through its norm, Q projection,
+    qk-norm and RoPE: the query the attention uses) ``q [B, H, d]``, the
+    engine's own selection for that layer (``ids``, ``mask``: ``[B, M]``,
+    inactive rows masked) and, for each active row, its K and V before this
+    token (``k``, ``v``: the full context) and the K on disk (``k_disk``:
+    the tokens ``k_lr`` covers); ``seconds`` is the capture's wall, which
+    the step's wall holds.  The hook is removed on exit."""
+    rec: dict = {}
+    if probe is None:
+        yield rec
+        return
+    step, layer = probe
+
+    def hook(lyr, x, positions, table):
+        if lyr != layer or len(engine.step_log) != step or "q" in rec:
+            return
+        t0 = time.perf_counter()
+        q = engine.model.predict_query(engine.params, lyr, x, positions)
+        rows = np.flatnonzero(engine.row_active)           # this step's rows
+        rec.update(step=step, layer=layer, q=q.float().cpu().numpy(), rows=rows,
+                   ids=table.group_ids.copy(), mask=table.group_mask.copy(),
+                   k_disk={}, k={}, v={})
+        for bi in rows:
+            k, v, n_disk = engine.layer_context(lyr, int(bi))
+            rec["k"][int(bi)], rec["v"][int(bi)], rec["k_disk"][int(bi)] = k, v, k[:n_disk]
+        _sync(dev)
+        rec["seconds"] = time.perf_counter() - t0
+
+    engine.layer_hook = hook
+    try:
+        yield rec
+    finally:
+        engine.layer_hook = None
+
+
 def _profiled(fn, dev: torch.device) -> dict:
     """One ``fn()`` call under ``torch.profiler``: the window's host wall
     time, the device operations as ``(name, ms, calls)`` from the largest
@@ -183,9 +230,18 @@ def _cut(cfg: ModelConfig, n_layers: int | None) -> ModelConfig:
     return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
 
 
-def _main_calib(rng: np.random.Generator, cfg: ModelConfig, prompt_len) -> np.ndarray:
+def main_prompts(cfg: ModelConfig, *, n_requests: int = 6,
+                 prompt_len: tuple[int, int] = (1024, 2048),
+                 seed: int = 0) -> tuple[np.ndarray, list[np.ndarray]]:
+    """:func:`run_main_path`'s calibration prompt and its ``n_requests``
+    request prompts for the same arguments, each of a length drawn
+    uniformly from ``prompt_len``: a caller can know the run's shapes
+    before it runs."""
+    rng = np.random.default_rng(seed)
     lo, hi = prompt_len
-    return rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+    calib, *prompts = (rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+                       for _ in range(1 + n_requests))
+    return calib, prompts
 
 
 def build_weights(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
@@ -196,34 +252,41 @@ def build_weights(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
     :func:`run_prefix_path` (``weights=``) so both serve one copy."""
     dev = resolve(device)
     cfg = _cut(cfg, n_layers)
-    calib = _main_calib(np.random.default_rng(seed), cfg, prompt_len)
+    calib, _ = main_prompts(cfg, n_requests=0, prompt_len=prompt_len, seed=seed)
     return _model_and_adapter(cfg, calib, rank=rank, seed=seed, dev=dev)
 
 
 def _serve(model, params, adapter, ecfg: EngineConfig, dev: torch.device, prompts,
            max_new: int, *, slots: int, prefix_cache=None, faults=None,
-           keep_logits: bool = False) -> dict:
+           keep_logits: bool = False, probe: tuple[int, int] | None = None) -> dict:
     """Drain one session of greedy requests: outputs (``None`` for a
     request that failed), per-step walls without admissions, each admission's
     wall (to the device's end) with its cached and computed tokens, and the
     kernels' launches in the drain (peak device memory is counted from its
     start too); ``keep_logits`` also returns each admission's logits on the
-    host, in admission order (``admission_logits``)."""
+    host, in admission order (``admission_logits``); ``probe = (step,
+    layer)`` returns :func:`_probed`'s capture (``probe``), whose step is
+    left out of the step walls and whose capture time is taken off the
+    drain's wall."""
     step_wall: list[float] = []
     with ServeSession(model, params, ecfg, slots=slots, adapter=adapter, device=dev,
                       prefix_cache=prefix_cache, faults=faults) as sess, \
             _watched(sess.engine, dev, "decode_step", "admit_row", "publish",
-                     keep=("admit_row",) if keep_logits else ()) as rec:
+                     keep=("admit_row",) if keep_logits else ()) as rec, \
+            _probed(sess.engine, probe, dev) as probed:
         rids = [sess.submit(p, max_new) for p in prompts]
         with _counted(KERNELS, dev) as launches:
             t_start = time.perf_counter()
             while sess.has_work:
                 t0 = time.perf_counter()
+                was_probed = "q" in probed
                 events = sess.step()
                 _sync(dev)
-                if not any(e["type"] == "admit" for e in events):
+                # the probed step's wall holds the capture: it is left out
+                if not any(e["type"] == "admit" for e in events) and \
+                        ("q" in probed) == was_probed:
                     step_wall.append(time.perf_counter() - t0)
-            wall = time.perf_counter() - t_start
+            wall = time.perf_counter() - t_start - probed.get("seconds", 0.0)
         outputs = [np.asarray(sess.completed[r].output) if r in sess.completed else None
                    for r in rids]
         eng = sess.engine
@@ -251,6 +314,7 @@ def _serve(model, params, adapter, ecfg: EngineConfig, dev: torch.device, prompt
             "accountant": eng.accountant.snapshot(),
             "stats": sess.stats(),
             "prefetch_deaths": eng.prefetcher.deaths if eng.prefetcher is not None else 0,
+            "probe": probed or None,
         }
 
 
@@ -258,7 +322,7 @@ def run_main_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
                   engine_cfg: EngineConfig | None = None, slots: int = 4,
                   n_requests: int = 6, prompt_len: tuple[int, int] = (1024, 2048),
                   max_new: int = 32, seed: int = 0, weights: tuple | None = None,
-                  faults=None) -> dict:
+                  faults=None, probe: tuple[int, int] | None = None) -> dict:
     """Serve ``n_requests`` greedy requests (prompt lengths drawn uniformly
     from ``prompt_len``, ``max_new`` tokens each) over ``slots`` slots.
 
@@ -267,20 +331,18 @@ def run_main_path(cfg: ModelConfig, *, device=None, n_layers: int | None = None,
     and ``seed``) skips building the model; ``faults`` (a ``FaultPlan``)
     goes to the session.  Every kernel's launch count is set to 0 just
     before the drain and read just after.  ``outputs`` holds ``None`` for a
-    request that failed.
+    request that failed.  ``probe = (step, layer)`` captures decode step
+    ``step``'s tensors at model layer ``layer`` (:func:`_probed`) into
+    ``probe`` for :func:`probe_fidelity`.
     """
     dev = resolve(device)
     cfg = _cut(cfg, n_layers)
     ecfg = engine_cfg or EngineConfig()
-    rng = np.random.default_rng(seed)
-    calib = _main_calib(rng, cfg, prompt_len)
-    lo, hi = prompt_len
-    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
-               for _ in range(n_requests)]
+    calib, prompts = main_prompts(cfg, n_requests=n_requests, prompt_len=prompt_len, seed=seed)
     model, params, adapter = weights or _model_and_adapter(cfg, calib, rank=ecfg.rank,
                                                            seed=seed, dev=dev)
     run = _serve(model, params, adapter, ecfg, dev, prompts, max_new, slots=slots,
-                 faults=faults)
+                 faults=faults, probe=probe)
     return {**run, "prompt_lens": [len(p) for p in prompts], "n_layers": cfg.n_layers,
             "peak_memory_bytes": _peak(dev), "session_clock": run["stats"]["modeled_seconds"]}
 
@@ -908,3 +970,84 @@ def compare_routes(device=None, *, seed: int = 0) -> dict:
             "tokens_equal": bool(np.array_equal(runs["card"]["tokens"], runs["cpu"]["tokens"])),
             "selections": n_sel, "flips": flips,
             "launches_card": runs["card"]["launches"], "launches_cpu": runs["cpu"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the paper's offline tuner, and the baselines on one decode step's tensors
+# ---------------------------------------------------------------------------
+
+
+def model_dims(cfg: ModelConfig) -> hardware.ModelDims:
+    """The tuner's dims of a config (``d_ff = cfg.d_ff or 4·d_model``, as the
+    reference's ``examples/offline_tuning.py`` builds them)."""
+    return hardware.ModelDims(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                              n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                              d_ff=cfg.d_ff or 4 * cfg.d_model)
+
+
+def tuned_engine_config(cfg: ModelConfig, *, b_max: int, s_max: int, budget_bytes: int,
+                        disk: str = "nvme",
+                        **engine_kw) -> tuple[tuner.TunedParams, EngineConfig]:
+    """``tuner.solve`` at ``(b_max, s_max)`` for the config's dims and depth
+    under a per-batch budget of ``budget_bytes`` on ``disk``, and the
+    ``EngineConfig`` that takes its ``group_size``, ``n_select``, ``rank``
+    and ``reuse_capacity`` (at least 16), with ``max_seq = s_max`` and
+    ``engine_kw``.  The rank is passed on as tuned: kernel A takes ``rank <=
+    256`` and raises past it."""
+    tuned = tuner.solve(tuner.TunerInputs(dims=model_dims(cfg), n_layers=cfg.n_layers,
+                                          b_max=b_max, s_max=s_max, budget_bytes=budget_bytes,
+                                          disk=disk))
+    # the reference's quickstart floor: the reuse buffer holds at least 16 groups
+    ecfg = EngineConfig(group_size=tuned.group_size, n_select=tuned.n_select, rank=tuned.rank,
+                        reuse_capacity=max(tuned.reuse_capacity, 16), max_seq=s_max,
+                        disk=disk, **engine_kw)
+    return tuned, ecfg
+
+
+def baseline_policies(n_kv_heads: int, head_dim: int, *, group_size: int, rank: int) -> list:
+    """The paper's §4.2 policies: FlexGen, InfiniGen, InfiniGen* (head
+    aggregation), ShadowKV, Loki (their default settings) and KVSwap at the
+    engine's group size and rank (its adapter fitted on the keys it scores)."""
+    from repro_torch.core import baselines as BL
+
+    return [BL.FlexGenPolicy(n_kv_heads, head_dim),
+            BL.InfiniGenPolicy(n_kv_heads, head_dim),
+            BL.InfiniGenPolicy(n_kv_heads, head_dim, head_agg=True),
+            BL.ShadowKVPolicy(n_kv_heads, head_dim),
+            BL.LokiPolicy(n_kv_heads, head_dim),
+            BL.KVSwapPolicy(n_kv_heads, head_dim, group_size=group_size, rank=rank)]
+
+
+def probe_fidelity(probe: dict, *, group_size: int, n_select: int, rank: int) -> dict:
+    """Score a probe (``run_main_path(probe=...)``) on the host.
+
+    ``recall``: :func:`~repro_torch.core.predictor.recall_at_m` of the
+    engine's own selection against the top-M groups of
+    :func:`~repro_torch.core.predictor.exact_group_scores` (the true query
+    over the K that ``k_lr`` covers), over the active rows.  ``fidelity``:
+    each baseline's ``evaluate_policy`` (as a dict) on the first active
+    row's query and full K and V, in float64, at a budget of ``n_select ·
+    group_size`` tokens."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.predictor import exact_group_scores, recall_at_m, select_groups
+
+    rows = [int(bi) for bi in probe["rows"]]
+    m = probe["ids"].shape[1]
+    oracle = []
+    for bi in rows:
+        k = torch.from_numpy(probe["k_disk"][bi][None])
+        gs = exact_group_scores(torch.from_numpy(probe["q"][bi][None]), k, group_size)
+        ids = select_groups(gs, n_select)[0][0].numpy()
+        # a row with fewer than M groups: the engine's mask is off past them
+        oracle.append(np.pad(ids, (0, m - len(ids))))
+    recall = recall_at_m(probe["ids"][rows], np.stack(oracle), probe["mask"][rows])
+    bi = rows[0]
+    q, k, v = (np.asarray(a, np.float64) for a in (probe["q"][bi], probe["k"][bi],
+                                                    probe["v"][bi]))
+    budget = n_select * group_size
+    fidelity = {}
+    for pol in baseline_policies(k.shape[1], k.shape[2], group_size=group_size, rank=rank):
+        fidelity[pol.name] = dataclasses.asdict(BL.evaluate_policy(pol, q, k, v, budget))
+    return {"step": probe["step"], "layer": probe["layer"], "rows": rows, "row": bi,
+            "n_tokens": k.shape[0], "budget_tokens": budget, "recall": recall,
+            "fidelity": fidelity}

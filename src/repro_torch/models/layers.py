@@ -1,6 +1,7 @@
 """Shared building blocks of the attention path: norms, RoPE, GQA attention,
-SwiGLU — the PyTorch port of :mod:`repro.models.layers` (attention and
-dense MLP only).
+SwiGLU and top-k routed MoE — the PyTorch port of :mod:`repro.models.layers`
+(attention, dense MLP and MoE; the reference's MoE sharding annotations
+belong to the distributed slice and are not here).
 
 Plain functions on tensors; params are plain dicts of tensors with the
 reference's layout (weights ``[in, out]``, applied as ``x @ w``).  Decode
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -176,3 +178,93 @@ def gather_slots(dev_k: torch.Tensor, dev_v: torch.Tensor, slots: torch.Tensor,
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# MoE (top-k routing, capacity-bounded dispatch)
+# --------------------------------------------------------------------------
+
+
+def init_moe(*, generator: torch.Generator, device, d_model: int, d_ff: int,
+             n_experts: int, dtype=torch.float32, shared_d_ff: int = 0) -> dict:
+    """MoE weights in the reference layout, drawn from ``generator``: the
+    router ``N(0, 0.02²)``, the experts' gate and up ``N(0, 1/d_model)`` and
+    down ``N(0, 1/d_ff)``, and an optional dense shared expert."""
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype).mul_(scale)
+
+    p = {
+        "router": normal((d_model, n_experts), 0.02),
+        "w_gate": normal((n_experts, d_model, d_ff), 1.0 / math.sqrt(d_model)),
+        "w_up": normal((n_experts, d_model, d_ff), 1.0 / math.sqrt(d_model)),
+        "w_down": normal((n_experts, d_ff, d_model), 1.0 / math.sqrt(d_ff)),
+    }
+    if shared_d_ff:
+        p["shared"] = {"w_gate": normal((d_model, shared_d_ff), 1.0 / math.sqrt(d_model)),
+                       "w_up": normal((d_model, shared_d_ff), 1.0 / math.sqrt(d_model)),
+                       "w_down": normal((shared_d_ff, d_model), 1.0 / math.sqrt(shared_d_ff))}
+    return p
+
+
+def moe_capacity(s: int, top_k: int, n_experts: int, capacity_factor: float) -> int:
+    """Slots per expert in one row's dispatch buffer for a call of ``s``
+    tokens: ``ceil(s·k / E · cf)``, at least 1 (1 for a decode step)."""
+    return max(1, int(np.ceil(s * top_k / n_experts * capacity_factor)))
+
+
+def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
+    """Top-k routed MoE with capacity-bounded dispatch, as the reference.
+
+    ``x: [B, S, D]`` → ``(y [B, S, D], aux_loss scalar)``.  Each row's
+    ``S·k`` assignments, token-major then by rank, queue at their expert in
+    that order (an exclusive cumsum); those at or past the capacity
+    (:func:`moe_capacity`) are dropped.  The kept ones are scattered into a
+    per-row buffer ``[B, E, C, D]``, the expert SwiGLU runs batched over
+    ``E`` (every expert, whatever the number of tokens it holds), and the
+    outputs come back weighted by their renormalised gates.  The top k are
+    taken by a stable descending sort, so equal probabilities rank the lower
+    expert first, as ``jax.lax.top_k`` does.  ``aux_loss`` is the Switch
+    load-balance loss.
+    """
+    b, s, d = x.shape
+    e = p["router"].shape[1]
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1)               # [B,S,E]
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = gate_vals[..., :top_k], gate_idx[..., :top_k]    # [B,S,K]
+    gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
+
+    cap = moe_capacity(s, top_k, e, capacity_factor)
+    t = s * top_k                                          # assignments per row
+    expert_of = gate_idx.reshape(b, t)                     # [B,T]
+    token_of = torch.arange(s, device=x.device).repeat_interleave(top_k)[None].expand(b, t)
+    gates = gate_vals.reshape(b, t)
+
+    # position of each assignment within its expert's queue
+    assign = F.one_hot(expert_of, e)                                   # [B,T,E]
+    pos = (assign.cumsum(dim=1) - assign).gather(-1, expert_of[..., None])[..., 0]
+    keep = pos < cap
+    pos_safe = torch.where(keep, pos, cap)                 # slot cap = dropped
+
+    # one scatter with no mask (a boolean index would wait on the host):
+    # dropped assignments land in an extra slot that is sliced away
+    bidx = torch.arange(b, device=x.device)[:, None].expand(b, t)
+    buf = x.new_zeros((b, e, cap + 1, d))
+    buf.index_put_((bidx, expert_of, pos_safe), x[bidx, token_of])
+    buf = buf[:, :, :cap]
+
+    h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"]))
+    h = h * torch.einsum("becd,edf->becf", buf, p["w_up"])
+    out = torch.einsum("becf,efd->becd", h, p["w_down"])                # [B,E,C,D]
+
+    y_tok = out[bidx, expert_of, pos_safe.clamp(0, cap - 1)]            # [B,T,D]
+    y_tok = y_tok * (gates * keep).to(y_tok.dtype)[..., None]
+    # each token's k assignments are adjacent: sum them (the reference's
+    # scatter-add onto the token, in a fixed order)
+    y = y_tok.reshape(b, s, top_k, d).sum(dim=2)
+    if "shared" in p:
+        y = y + swiglu(p["shared"], x)
+
+    me = probs.mean(dim=(0, 1))                                         # [E]
+    ce = F.one_hot(gate_idx, e).sum(dim=2).float().mean(dim=(0, 1))     # routed fraction
+    aux = e * torch.sum(me * ce)
+    return y, aux

@@ -1,13 +1,14 @@
-"""Decoder stack of the port: dense attention, and the Zamba2-style hybrid
-of Mamba2 blocks with shared-weight attention.
+"""Decoder stack of the port: dense attention, MoE attention blocks, and the
+Zamba2-style hybrid of Mamba2 blocks with shared-weight attention.
 
 :class:`ModelConfig` is the reference's config record, copied; the params
 are a plain dict of tensors with the reference ``init_params`` layout (so
 :mod:`repro_torch.bridge` can load the reference's weights one to one),
 ``forward`` is the teacher-forced full-sequence forward, and
 :class:`TransformerAdapter` is the per-block prefill/decode interface the
-KVSwap engine consumes.  This slice builds ``"attn"``, ``"shared_attn"`` and
-``"mamba2"`` blocks; ``"moe_attn"``, ``"mlstm"`` and ``"slstm"`` raise.
+KVSwap engine consumes.  The port builds ``"attn"``, ``"moe_attn"``,
+``"shared_attn"`` and ``"mamba2"`` blocks; ``"mlstm"`` and ``"slstm"``
+raise.
 """
 
 from __future__ import annotations
@@ -22,9 +23,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
 ATTN_KINDS = ("attn", "moe_attn", "shared_attn")
-BUILT_KINDS = ("attn", "shared_attn", "mamba2")
-_LATER = {"moe_attn": "MoE attention (layers.moe)", "mlstm": "xLSTM (mlstm)",
-          "slstm": "xLSTM (slstm)"}
+BUILT_KINDS = ("attn", "moe_attn", "shared_attn", "mamba2")
+_LATER = {"mlstm": "xLSTM (mlstm)", "slstm": "xLSTM (slstm)"}
 
 
 def _refuse_later_kinds(cfg) -> None:
@@ -151,6 +151,11 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None,
         if kind == "attn":
             blocks.append({"attn_norm": norm(d), "attn": attention(),
                            "mlp_norm": norm(d), "mlp": mlp()})
+        elif kind == "moe_attn":
+            blocks.append({"attn_norm": norm(d), "attn": attention(), "mlp_norm": norm(d),
+                           "moe": L.init_moe(generator=generator, device=dev, d_model=d,
+                                             d_ff=cfg.moe_d_ff, n_experts=cfg.n_experts,
+                                             dtype=dtype, shared_d_ff=cfg.moe_shared_d_ff)})
         elif kind == "shared_attn":
             # per-block input norm; the attention and MLP weights are shared
             blocks.append({"attn_norm": norm(d)})
@@ -192,32 +197,45 @@ def _qkv(cfg: ModelConfig, attn_p, h, positions):
                            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
 
 
+def _ffn(params, cfg: ModelConfig, layer: int, mlp_holder, h: torch.Tensor):
+    """The block's feed-forward on the normed ``h [B, S, D]`` → ``(y,
+    aux)``: routed MoE (with its load-balance loss) in a ``moe_attn``
+    block, else the dense SwiGLU (aux 0)."""
+    if cfg.blocks[layer] == "moe_attn":
+        return L.moe(params["blocks"][layer]["moe"], h, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity_factor)
+    return L.swiglu(mlp_holder["mlp"], h), 0.0
+
+
 def block_forward(params, cfg: ModelConfig, layer: int, x: torch.Tensor,
                   positions: torch.Tensor, state=None, *, return_kv: bool = False):
-    """Full-sequence forward through one block: ``x [B, S, D]`` → ``(x,
-    kv_or_state)`` — ``(k, v)`` post-RoPE for an attention block when
-    ``return_kv``, the new recurrent state for a Mamba2 block."""
+    """Full-sequence forward through one block: ``x [B, S, D]`` → ``(x, aux,
+    kv_or_state)`` — ``aux`` the MoE load-balance loss (0 elsewhere),
+    ``(k, v)`` post-RoPE for an attention block when ``return_kv``, the new
+    recurrent state for a Mamba2 block."""
     kind = cfg.blocks[layer]
     if kind in ATTN_KINDS:
         nb, attn_p, mlp_holder = _attn_params(params, cfg, layer)
         q, k, v = _qkv(cfg, attn_p, L.rmsnorm(nb["attn_norm"], x), positions)
         o = L.causal_attention(q, k, v)
         x = x + o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim) @ attn_p["wo"]
-        x = x + L.swiglu(mlp_holder["mlp"], L.rmsnorm(mlp_holder["mlp_norm"], x))
-        return x, ((k, v) if return_kv else None)
+        y, aux = _ffn(params, cfg, layer, mlp_holder, L.rmsnorm(mlp_holder["mlp_norm"], x))
+        return x + y, aux, ((k, v) if return_kv else None)
     blk = params["blocks"][layer]
     y, st = S.mamba2_forward(blk["mamba"], L.rmsnorm(blk["norm"], x), state)
-    return x + y, st
+    return x + y, 0.0, st
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced forward: ``tokens [B, S]`` → logits ``[B, S, V]``."""
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Teacher-forced forward: ``tokens [B, S]`` → logits ``[B, S, V]`` (the
+    reference also returns the summed MoE load-balance loss, which
+    :func:`block_forward` returns block by block)."""
     _refuse_later_kinds(cfg)
     x = params["embed"][tokens]
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].repeat(b, 1)
     for i in range(len(cfg.blocks)):
-        x, _ = block_forward(params, cfg, i, x, positions)
+        x, _, _ = block_forward(params, cfg, i, x, positions)
     x = L.rmsnorm(params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head
@@ -262,14 +280,15 @@ class TransformerAdapter:
     def prefill_block(self, params, layer: int, x: torch.Tensor, positions: torch.Tensor):
         """Full-attention prefill through block ``layer``: ``x [B, S, D]`` →
         ``(x_out, k [B, S, H_kv, d], v)`` with K post-RoPE (what gets cached)."""
-        x, (k, v) = block_forward(params, self.cfg, layer, x, positions, return_kv=True)
+        x, _, (k, v) = block_forward(params, self.cfg, layer, x, positions, return_kv=True)
         return x, k, v
 
     def prefill_state_block(self, params, layer: int, x: torch.Tensor,
                             positions: torch.Tensor):
         """Prefill through state block ``layer`` (chunked SSD, kernel C on the
         card) → ``(x_out, state)``."""
-        return block_forward(params, self.cfg, layer, x, positions)
+        x, _, st = block_forward(params, self.cfg, layer, x, positions)
+        return x, st
 
     def prefill_block_with_ctx(self, params, layer: int, x: torch.Tensor,
                                positions: torch.Tensor, k_prefix: torch.Tensor,
@@ -281,7 +300,10 @@ class TransformerAdapter:
         ``k_prefix/v_prefix [B, S_pre, H_kv, d]`` (post-RoPE, as cached).
         Returns ``(x_out [B, S_suf, D], k_suf, v_suf [B, S_suf, H_kv, d])``.
         It runs op by op as :func:`block_forward` does, so it computes the
-        same score rows as the cold path.
+        same score rows as the cold path.  A ``moe_attn`` block routes only
+        the suffix tokens, with the capacity of a call of ``S_suf`` tokens:
+        that equals the cold forward only where no token is dropped, in the
+        reference as here.
         """
         cfg = self.cfg
         nb, attn_p, mlp_holder = _attn_params(params, cfg, layer)
@@ -290,8 +312,8 @@ class TransformerAdapter:
         v_all = torch.cat([v_prefix.to(v.dtype), v], dim=1)
         o = L.chunked_causal_attention(q, k_all, v_all, k_prefix.shape[1])
         x = x + o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim) @ attn_p["wo"]
-        x = x + L.swiglu(mlp_holder["mlp"], L.rmsnorm(mlp_holder["mlp_norm"], x))
-        return x, k, v
+        y, _ = _ffn(params, cfg, layer, mlp_holder, L.rmsnorm(mlp_holder["mlp_norm"], x))
+        return x + y, k, v
 
     # -- decode ------------------------------------------------------------
     def gather_context(self, dev_k, dev_v, slots, tail_k, tail_v, tail_fill):
@@ -312,8 +334,13 @@ class TransformerAdapter:
         q, k_new, v_new = q[:, 0], k_new[:, 0], v_new[:, 0]
         o = L.decode_attention(q, k_ctx, v_ctx, ctx_mask, k_new, v_new)
         x = x + o.reshape(x.shape[0], self.n_heads * self.head_dim) @ attn_p["wo"]
-        x = x + L.swiglu(mlp_holder["mlp"], L.rmsnorm(mlp_holder["mlp_norm"], x))
-        return x, k_new, v_new
+        h2 = L.rmsnorm(mlp_holder["mlp_norm"], x)
+        if cfg.blocks[layer] == "moe_attn":
+            # the step's one token a row, routed as a call of S = 1 (capacity 1)
+            y = _ffn(params, cfg, layer, mlp_holder, h2[:, None])[0][:, 0]
+        else:
+            y = L.swiglu(mlp_holder["mlp"], h2)
+        return x + y, k_new, v_new
 
     def decode_state_block(self, params, layer: int, x: torch.Tensor,
                            positions: torch.Tensor, state: dict):

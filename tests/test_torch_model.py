@@ -146,7 +146,7 @@ class TestInitParams:
         w = a["blocks"][0]["mlp"]["w_down"]
         assert abs(float(w.std()) * np.sqrt(tiny_cfg.d_ff) - 1.0) < 0.1
 
-    @pytest.mark.parametrize("kind", ["moe_attn", "mlstm", "slstm"])
+    @pytest.mark.parametrize("kind", ["mlstm", "slstm"])
     def test_other_block_kinds_refused(self, tiny_cfg, kind):
         cfg = dataclasses.replace(port_cfg(tiny_cfg), block_pattern=("attn", kind))
         with pytest.raises(NotImplementedError):
