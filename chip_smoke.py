@@ -9,21 +9,25 @@
    stack and spills), and kernel C's dynamic shared memory, blocks per SM
    and waves at the Zamba2 path's shapes;
 2. runs the paper's offline tuner (``tuner.solve``) for OLMoE-1B-7B's dims
-   (b_max 4, s_max 4096, a budget of 256 MiB a batch, disk nvme) and
-   prints its ``TunedParams`` (the rank must be at most 256, kernel A's
-   limit); holds each kernel against its plain PyTorch version on the
-   card, at each main path's shapes (those of paths 8-10 from their seeded
-   prompt lengths and the tuned tuple) and at ragged and edge shapes
-   (kernel C also bitwise equal over 5 repeated calls), and times the
+   (b_max 4, s_max 4096, a budget of 256 MiB a batch, disk nvme) and for
+   Llama-3.1-8B's at the same inputs, and prints their ``TunedParams``
+   (Llama's rank, 512, must take kernel A past rank 256); holds each kernel
+   against its plain PyTorch version on the card, at each main path's
+   shapes (those of paths 8-10 from their seeded prompt lengths and the
+   tuned tuples, those of paths 11-14) and at ragged and edge shapes
+   (kernel A at rank 512 in one launch and past 256 with ragged chunks;
+   kernel C also bitwise equal over 5 repeated calls), and times the
    kernel, the plain version and (where one exists) one library call with
    CUDA events at each path's shapes, and the kernel alone with
    ``torch.profiler``; prints the events' floor (one launch of a trivial
    fill); checks kernel B past head_dim 128 (stablelm-12b's d = 160, and
    d = 256; the StableLM path's entry times it) and prints its blocks per
    SM at each width; with ``--parent DIR`` (a checkout of another tree)
-   builds that tree's kernel B and times both in turns at the serving and
-   hybrid paths' shapes, and does the same for its MoE layer at the OLMoE
-   path's decode and prefill shapes; runs the tiny engine on the card and on the CPU
+   builds that tree's kernels A and B and times each in turns with this
+   tree's (A at ranks 64, 256 and 30, B at the serving and hybrid paths'
+   shapes; bit-equal outputs required), and does the same for its MoE
+   layer at the OLMoE path's decode and prefill shapes; runs the tiny
+   engine on the card and on the CPU
    and compares every group selection and token (the flipped selections,
    each with its score gaps);
 3. drives the first main path: a ``ServeSession`` at Llama-3.1-8B width (all
@@ -109,11 +113,37 @@
    d = 160 once per layer per decode step);
 10. serves Granite-8B, Qwen3-32B and Chameleon-34B at full width, cut to 2
    layers each: 2 greedy requests of 512-1024 tokens, 8 new each over 2
-   slots (kernel B at rep 4, 8 and 8), the same checks;
-11. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
+   slots (kernel B at rep 4, 8 and 8), the same checks; then Llama-3.1-8B
+   on its tuned tuple (G 4, M 100, rank 512) at full width cut to 4
+   layers, 6 requests, the same checks (kernel A at rank 512);
+11. drives the full-cache device path (``serving/decode.py``, what
+   ``repro_torch.launch.serve --engine device`` runs) at Llama-3.1-8B
+   width on the serving path's weights, before they are freed: 4 prompts
+   of 2048 tokens, 32 new, ``max_len`` 4096, in three modes: ``full``,
+   ``kvswap`` (``KVSwapServeConfig(4, 100, 64)``: kernel B at S 401, 32 x
+   32 launches, none in ``full``) and ``kvswap`` with the rolling buffer
+   and cross-layer prediction (S 405, a flush every 4 steps); prints each
+   prefill wall, step median, tokens/s and peak memory.  At 4 layers
+   (after the 4-layer runs): ``kvswap`` selecting every group against
+   ``full`` on the same tokens (within 1e-4 of the largest |logit|), and
+   the rolling buffer against the direct path (within 2e-4);
+12. after the hybrid path, Zamba2-1.2B through the device path
+   (``kvswap``, 38 blocks, 4 x 2048): kernel C 32 times in the prefill,
+   kernel B 6 a step;
+13. Whisper-large-v3 at full width (32 + 32 layers, d_model 1280, 20
+   heads, head_dim 64; the encoder over 4 seeded 1500-frame sequences):
+   ``KVSwapEngine.generate`` on 4 x 2048 decoder tokens, 32 new (the
+   engine's host-gather route; kernels A and B once per layer per decode
+   step), then the same weights through the device path (``kvswap``);
+14. xLSTM-1.3B at full width (48 blocks) through the device path, 4 x
+   1024 tokens, 32 new: no kernel launches; and two of its blocks (an
+   mLSTM and an sLSTM) whose prefill and steps must equal the
+   teacher-forced forward within 2e-4 of max(1, the largest |logit|);
+15. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
    path that runs it (``path``): its time, bound, plain and library times
    at that path's shapes, and ``launches`` in that path's main run, counted
-   from 0 just before it; then, last, the ``{"ok": true, ...}`` line.
+   from 0 just before it (every entry's above 0); then, last, the
+   ``{"ok": true, ...}`` line.
 
 Any failed phase exits nonzero without the last line.  Imports no JAX and
 nothing of the JAX package ``repro``.  Needs one CUDA card.
@@ -162,6 +192,21 @@ OLMOE_TUNE = dict(b_max=4, s_max=4096, budget_bytes=256 << 20, disk="nvme")
 OLMOE_PROBE = (8, 8)                           # decode step 8, layer 8: the baselines' tensors
 # stablelm-12b's attention (configs/stablelm_12b.py): kernel B at head_dim 160
 STABLELM_ATTN = (4, 32, 8, 160, 405)
+# the tuner's tuple for Llama-3.1-8B at the OLMoE path's budget: rank 512,
+# kernel A's wide instance; served at full width cut to 4 layers
+TUNED = "llama3-8b-tuned"
+SERVED[TUNED] = dict(n_layers=4, slots=4, n_requests=6, prompt_len=(1024, 2048), max_new=32)
+ARCH_OF = {TUNED: LLAMA}
+# the full-cache device path (serving/decode.py) and the paths it serves
+WHISPER, XLSTM = "whisper-large-v3", "xlstm-1.3b"
+LLAMA_DEV, LLAMA_ROLL = "llama3-8b-device", "llama3-8b-device-rolling"
+ZAMBA_DEV, WHISPER_DEV = "zamba2-1.2b-device", "whisper-large-v3-device"
+DEVICE_RUN = dict(batch=4, prompt_len=2048, max_new=32, max_len=4096)
+XLSTM_RUN = dict(batch=4, prompt_len=1024, max_new=32, max_len=1024 + 32 + 4)
+# KVSwapServeConfig(group_size, n_select, rank) of every kvswap run
+DEVICE_KVSWAP = (4, 100, 64)
+# kernel C at the Zamba2 prefill: B 4, S 2048 in 16 chunks of Q 128, H 64, P 64, N 64
+ZAMBA_SSD = dict(b=4, nc=16, q=128, h=64, p=64, n=64)
 # each kernel's source and the TPU kernel it replaces
 SOURCES = {"lowrank_group_scores": ("lowrank_score.cu", "src/repro/kernels/lowrank_score.py:23"),
            "gather_attention": ("gather_attention.cu", "src/repro/kernels/gather_attention.py:28"),
@@ -219,6 +264,11 @@ def profiled_ms(fn, flush: torch.Tensor, kernel: str, reps: int = 20) -> float |
     return total_us / reps / 1e3 if total_us else None
 
 
+# the names of a kernel's bool template arguments, in order: (true, false)
+BOOL_ARGS = {"gather_attention_kernel": [("wide", "narrow")],
+             "lowrank_group_scores_kernel": [("vec", "scalar"), ("wide", "narrow")]}
+
+
 def ptxas_lines(log: str) -> list[str]:
     """One line per kernel compiled in nvcc's ``-Xptxas -v`` log: its
     registers, static shared memory, stack frame and spills."""
@@ -229,11 +279,14 @@ def ptxas_lines(log: str) -> list[str]:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            # template arguments: an int, then (kernel B) whether it is the wide one
-            name = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", entry.group(1))
-            args = [] if not name else [a for a in name.group(2, 3) if a is not None]
-            if len(args) == 2:
-                args[1] = "wide" if args[1] == "1" else "narrow"
+            # template arguments: ints as numbers, bools by their names
+            name = re.search(r"([a-z_]+_kernel)((?:I|L[ib]-?\d+E)*)", entry.group(1))
+            args, bools = [], list(BOOL_ARGS.get(name.group(1), [])) if name else []
+            for kind, val in re.findall(r"L([ib])(-?\d+)E", name.group(2) if name else ""):
+                if kind == "b" and bools:
+                    args.append(bools.pop(0)[0 if val == "1" else 1])
+                else:
+                    args.append(val)
             kernels.append((f"{name.group(1)}<{', '.join(args)}>" if args else
                             name.group(1) if name else entry.group(1), {}))
         elif kernels:
@@ -403,8 +456,18 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
                       ((2, 4, 3, 77, 5), [77, 12]),
                       ((2, 16, 64, 1000, 1), [1000, 513]),       # G = 1
                       ((1, 4, 16, 1000, 100), [900]),            # G > 64: several passes
-                      ((2, 8, 64, 130, 4), [5000, 131])]:        # valid_len > N
+                      ((2, 8, 64, 130, 4), [5000, 131]),         # valid_len > N
+                      ((2, 8, 260, 300, 4), [300, 33]),          # r > 256: a last chunk of 1 float4
+                      ((2, 4, 513, 200, 4), [200, 77]),          # r > 256, r % 4 != 0
+                      ((1, 8, 1024, 1000, 100), [900]),          # four chunks, G > 64
+                      ((4, 20, 64, 4096, 4), [2064] * 4)]:       # whisper-large-v3: H = 20
         err_a = max(err_a, check_scores(ops, select_groups, dev, gen, *shape, vl, 6))
+    # Llama-3.1-8B at the tuner's tuple for 256 MiB a batch (rank 512), in one launch
+    before = ops.lowrank_group_scores.launches
+    err_a = max(err_a, check_scores(ops, select_groups, dev, gen, 4, 32, 512, 4096, 4,
+                                    [1024, 1536, 2048, 1200], 100))
+    check(ops.lowrank_group_scores.launches == before + 1, "kernel A at rank 512 took more than "
+          "one launch")
     for path, valid in valid_a.items():
         err = check_scores(ops, select_groups, dev, gen, b, h, r, n, g, valid, 100)
         entry("lowrank_group_scores", path, max(err, err_a),
@@ -440,7 +503,7 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
               time_attention(ops, dev, gen, flush, b, h, hk, d, s, mask))
 
     # kernel C: Zamba2 prefill B=4, S=2048 in 16 chunks of Q=128, H=64, P=64, N=64
-    path = dict(b=4, nc=16, q=128, h=64, p=64, n=64)
+    path = ZAMBA_SSD
     err_c = check_ssd(ops, dev, gen, path)
     for shape in [dict(b=2, nc=1, q=128, h=64, p=64, n=64),          # one chunk
                   dict(b=1, nc=2, q=16, h=2, p=8, n=4),
@@ -455,17 +518,56 @@ def kernel_checks(ops, select_groups, dev) -> list[dict]:
     first = ops.ssd_chunk(*args)
     check(all(torch.equal(ops.ssd_chunk(*args), first) for _ in range(5)),
           "kernel C: repeated calls at the Zamba2 path's shapes differ in their bits")
-    del first
-    bc, q, h, p, n = path["b"] * path["nc"], path["q"], path["h"], path["p"], path["n"]
+    del first, args
+    entry("ssd_chunk", ZAMBA, err_c, time_ssd(ops, dev, gen, flush, path))
+    return entries
+
+
+def time_ssd(ops, dev, gen, flush, shape: dict) -> dict:
+    args = ssd_inputs(gen, dev, **shape)
+    bc, q, h, p, n = shape["b"] * shape["nc"], shape["q"], shape["h"], shape["p"], shape["n"]
     tri = q * (q + 1) // 2                    # (i, j) pairs on and below the diagonal
     bound_c, by_c = bound_ms(4 * sum(a.numel() for a in args) + 4 * bc * q * h * p,
                              bc * tri * (2 * n + 3 * h + 2 * h * p))
-    entry("ssd_chunk", ZAMBA, err_c,
-          {"ms": device_ms(lambda: ops.ssd_chunk(*args), flush),
-           "device_ms": profiled_ms(lambda: ops.ssd_chunk(*args), flush, "ssd_chunk_kernel"),
-           "plain_ms": device_ms(lambda: ops.ssd_chunk_plain(*args), flush),
-           "bound_ms": bound_c, "bound_by": by_c, "library_ms": None})
-    return entries
+    return {"ms": device_ms(lambda: ops.ssd_chunk(*args), flush),
+            "device_ms": profiled_ms(lambda: ops.ssd_chunk(*args), flush, "ssd_chunk_kernel"),
+            "plain_ms": device_ms(lambda: ops.ssd_chunk_plain(*args), flush),
+            "bound_ms": bound_c, "bound_by": by_c, "library_ms": None}
+
+
+def attention_entry(ops, dev, gen, flush, path, shape) -> dict:
+    """Kernel B at ``shape = (B, H, H_kv, d, S)``, held against its plain
+    version and timed (with SDPA's time), as ``path``'s entry."""
+    b, h, hk, d, s = shape
+    mask = torch.rand((b, s), generator=gen, device=dev) > 0.2
+    mask[:, -1] = True                                   # the token itself
+    err = check_attention(ops, dev, gen, b, h, hk, d, s, mask)
+    return kernel_entry("gather_attention", path, err,
+                        time_attention(ops, dev, gen, flush, b, h, hk, d, s, mask))
+
+
+def device_entries(main_path, registry, ecfg, ops, select_groups, dev) -> list[dict]:
+    """The kernel entries of the paths this script drives after the dense
+    ones: kernels A and B at Whisper's shapes through the engine (H = H_kv =
+    20, d 64, S = M·G + G + 1), and kernel B at each full-cache device
+    path's (S = M·G + 1, or M·G + G + 1 with the rolling buffer), kernel C
+    at the Zamba2 prefill's."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    g, m, _ = DEVICE_KVSWAP
+    w = registry.get(WHISPER)
+    out = path_entries(ops, select_groups, dev, WHISPER,
+                       [DEVICE_RUN["prompt_len"]] * DEVICE_RUN["batch"], ecfg,
+                       h=w.n_heads, hk=w.n_kv_heads, d=w.head_dim, slots=DEVICE_RUN["batch"],
+                       max_new=DEVICE_RUN["max_new"])
+    for path, arch, s in ((LLAMA_DEV, LLAMA, m * g + 1), (LLAMA_ROLL, LLAMA, m * g + g + 1),
+                          (ZAMBA_DEV, ZAMBA, m * g + 1), (WHISPER_DEV, WHISPER, m * g + 1)):
+        cfg = registry.get(arch)
+        out.append(attention_entry(ops, dev, gen, flush, path, (
+            DEVICE_RUN["batch"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, s)))
+    out.append(kernel_entry("ssd_chunk", ZAMBA_DEV, check_ssd(ops, dev, gen, ZAMBA_SSD),
+                            time_ssd(ops, dev, gen, flush, ZAMBA_SSD)))
+    return out
 
 
 def attention_inputs(dev, gen, b, h, hk, d, s):
@@ -505,22 +607,31 @@ def wide_attention(ops, dev, card) -> None:
         for (rep, dd), o in occ.items()), flush=True)
 
 
+def parent_lib(parent: Path, name: str, dev):
+    """The ``csrc/<name>.cu`` of the tree at ``parent``, built with this
+    tree's nvcc flags into ``build/parent_kernels/``; its ptxas lines are
+    printed."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    src = parent / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
+    lib = ROOT / "build" / "parent_kernels" / f"lib{name}.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                         capture_output=True, text=True)
+    check(out.returncode == 0, f"the parent's {name}.cu did not build:\n{out.stdout}{out.stderr}")
+    for line in ptxas_lines(out.stdout + out.stderr):
+        print(f"  ptxas parent {name}: {line}")
+    return ctypes.CDLL(str(lib))
+
+
 def parent_attention(parent: Path, dev):
     """Kernel B as the tree at ``parent`` builds it (the same nvcc flags), as
     a callable of ``(q, k, v, mask)``; the C entry point is the same."""
     import ctypes
 
-    from repro_torch.kernels import _build
-
-    src = parent / "src" / "repro_torch" / "kernels" / "csrc" / "gather_attention.cu"
-    lib = ROOT / "build" / "parent_kernels" / "libgather_attention.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                         capture_output=True, text=True)
-    check(out.returncode == 0, f"the parent's kernel B did not build:\n{out.stdout}{out.stderr}")
-    for line in ptxas_lines(out.stdout + out.stderr):
-        print(f"  ptxas parent gather_attention: {line}")
-    fn = ctypes.CDLL(str(lib)).gather_attention_f32
+    fn = parent_lib(parent, "gather_attention", dev).gather_attention_f32
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     counter = torch.zeros(4096, dtype=torch.int32, device=dev)
 
@@ -539,13 +650,50 @@ def parent_attention(parent: Path, dev):
     return call
 
 
+def parent_scores(parent: Path, dev):
+    """Kernel A as the tree at ``parent`` builds it, as a callable of ``(q_lr,
+    k_lr, valid_len, group_size)``; the C entry point is the same."""
+    import ctypes
+
+    fn = parent_lib(parent, "lowrank_score", dev).lowrank_group_scores_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+    def call(q, k, vl, g):
+        b, h, r = q.shape
+        n = k.shape[1]
+        o = torch.empty((b, -(-n // g)), device=dev)
+        err = fn(q.data_ptr(), k.data_ptr(), vl.data_ptr(), o.data_ptr(), b, h, n, r, g,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"the parent's kernel A failed to launch: CUDA error {err}")
+        return o
+    return call
+
+
 def against_parent(ops, parent: Path, dev, card) -> None:
-    """Kernel B of this tree and of the parent's, timed in turns (parent,
-    this, this, parent) at the serving and hybrid paths' shapes, on the same
-    inputs; the two agree in their bits at d <= 128."""
-    old = parent_attention(parent, dev)
+    """Kernels A and B of this tree and of the parent's, timed in turns
+    (parent, this, this, parent) on the same inputs: A at the serving
+    path's (r 64), the OLMoE path's (r 256, G 16) and a scalar-path shape
+    (r 30), B at the serving and hybrid paths' shapes; the two agree in
+    their bits there."""
     gen = torch.Generator(device=dev).manual_seed(3)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    old_a = parent_scores(parent, dev)
+    for path, (b, h, r, n, g), valid in ((LLAMA, (4, 32, 64, 4096, 4), [1024, 1536, 2048, 1200]),
+                                         (OLMOE, (4, 16, 256, 4096, 16), [1040, 1552, 2064, 1216]),
+                                         ("scalar", (4, 32, 30, 4096, 4), [1024, 1536, 2048, 1200])):
+        q = torch.randn((b, h, r), generator=gen, device=dev)
+        k = torch.randn((b, n, r), generator=gen, device=dev)
+        vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+        new_a = functools.partial(ops.lowrank_group_scores, group_size=g)
+        check(torch.equal(old_a(q, k, vl, g), new_a(q, k, vl)),
+              f"kernel A at {path}'s shapes differs in its bits from the parent's")
+        turns = [device_ms(fn, flush) for fn in (lambda: old_a(q, k, vl, g), lambda: new_a(q, k, vl),
+                                                  lambda: new_a(q, k, vl), lambda: old_a(q, k, vl, g))]
+        print(f"kernel lowrank_group_scores at {path}'s shapes (B {b}, H {h}, r {r}, N {n}, G "
+              f"{g}) against the parent tree, in turns (parent, this, this, parent): "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in turns)} us; bit-equal outputs  [{card}]",
+              flush=True)
+    old = parent_attention(parent, dev)
     for path, shape in ((LLAMA, (4, 32, 8, 128, 405)), (ZAMBA, (4, 32, 32, 64, 405))):
         q, k, v, mask = attention_inputs(dev, gen, *shape)
         check(torch.equal(old(q, k, v, mask), ops.gather_attention(q, k, v, mask)),
@@ -1081,7 +1229,7 @@ def served_entries(main_path, registry, ecfgs, ops, select_groups, dev) -> list[
     them)."""
     out = []
     for path, kw in SERVED.items():
-        cfg = registry.get(path)
+        cfg = registry.get(ARCH_OF.get(path, path))
         _, prompts = main_path.main_prompts(cfg, n_requests=kw["n_requests"],
                                             prompt_len=kw["prompt_len"])
         out += path_entries(ops, select_groups, dev, path, [len(p) for p in prompts],
@@ -1095,7 +1243,7 @@ def served_run(main_path, registry, path, ecfg, dev, **extra) -> tuple:
     request completed with its new tokens, finite logits, the depth served,
     and kernels A and B launched once per layer per decode step."""
     kw = SERVED[path]
-    cfg = registry.get(path)
+    cfg = registry.get(ARCH_OF.get(path, path))
     run = main_path.run_main_path(cfg, device=dev, engine_cfg=ecfg, **kw, **extra)
     n_layers = kw["n_layers"] or cfg.n_layers
     check(run["n_layers"] == n_layers, f"{path} path ran {run['n_layers']} layers")
@@ -1131,8 +1279,9 @@ def served_report(run, name: str, entries, card: str, t0: float) -> float:
 
 
 def tuner_phase(main_path, registry, card):
-    """The paper's offline tuner for OLMoE-1B-7B's dims; returns the tuned
-    tuple and the engine parameters the OLMoE path serves with."""
+    """The paper's offline tuner for OLMoE-1B-7B's dims, and for
+    Llama-3.1-8B's at the same inputs; returns the engine parameters the
+    OLMoE path and the tuned Llama path serve with."""
     cfg = registry.get(OLMOE)
     tuned, ecfg = main_path.tuned_engine_config(cfg, **OLMOE_TUNE, device_resident=True,
                                                 async_io=True)
@@ -1142,8 +1291,15 @@ def tuner_phase(main_path, registry, card):
           f"compute model jetson-orin-agx: TunedParams {json.dumps(dataclasses.asdict(tuned))}; "
           f"engine reuse_capacity {ecfg.reuse_capacity} (tuned {tuned.reuse_capacity})",
           flush=True)
-    check(tuned.rank <= 256, f"the tuned rank {tuned.rank} is past kernel A's limit of 256")
-    return tuned, ecfg
+    llama = registry.get(LLAMA)
+    tuned_l, ecfg_l = main_path.tuned_engine_config(llama, **OLMOE_TUNE, device_resident=True,
+                                                    async_io=True)
+    print(f"tuner: {LLAMA} ({llama.n_layers} layers) at the same inputs: TunedParams "
+          f"{json.dumps(dataclasses.asdict(tuned_l))}; served as {TUNED} at full width, cut to "
+          f"{SERVED[TUNED]['n_layers']} layers (kernel A at rank {tuned_l.rank})", flush=True)
+    check(tuned_l.rank > 256, f"{LLAMA}'s tuned rank {tuned_l.rank}: kernel A's wide instance "
+          "(rank > 256) would not run")
+    return ecfg, ecfg_l
 
 
 def moe_phase(main_path, registry, ecfg, entries, dev, card) -> dict:
@@ -1194,15 +1350,15 @@ def moe_phase(main_path, registry, ecfg, entries, dev, card) -> dict:
     return run["launches"]
 
 
-def dense_phases(main_path, registry, ecfg, entries, dev, card) -> dict:
+def dense_phases(main_path, registry, ecfg, ecfgs, entries, dev, card) -> dict:
     """StableLM-2-12B at full width (40 layers, head_dim 160), then
     Granite-8B, Qwen3-32B and Chameleon-34B at full width cut to 2 layers,
-    each on the first path's engine parameters; returns each run's
-    launches."""
+    each on the first path's engine parameters, then Llama-3.1-8B on its
+    tuned tuple (``ecfgs``) cut to 4 layers; returns each run's launches."""
     launches = {}
-    for path in (STABLELM, *DENSE_2L):
+    for path in (STABLELM, *DENSE_2L, TUNED):
         t0 = time.perf_counter()
-        cfg, run = served_run(main_path, registry, path, ecfg, dev)
+        cfg, run = served_run(main_path, registry, path, ecfgs.get(path, ecfg), dev)
         if SERVED[path]["n_layers"]:
             print(f"{path} path (GQA ratio {cfg.n_heads // cfg.n_kv_heads}, head_dim "
                   f"{cfg.head_dim}, qk_norm {cfg.qk_norm}, tied embeddings "
@@ -1215,13 +1371,203 @@ def dense_phases(main_path, registry, ecfg, entries, dev, card) -> dict:
     return launches
 
 
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def device_report(name: str, run, card: str, t0: float) -> None:
+    walls = run["decode_step_wall_seconds"]
+    print(f"{name}: {run['n_layers']} blocks, mode {run['mode']}, batch "
+          f"{DEVICE_RUN['batch']}, prefill wall {run['prefill_seconds'] * 1e3:.1f} ms, decode "
+          f"step median {statistics.median(walls) * 1e3:.2f} ms over {len(walls)} steps, "
+          f"{run['tokens_per_s']:.1f} tokens/s over the steps, peak device memory "
+          f"{run['peak_memory_bytes'] / 2**30:.2f} GiB, launches {run['launches']}, flushes "
+          f"{run['flushes']}, total {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+
+
+def device_run(main_path, name, cfg, mode, params, dev, card, *, serve_cfg=None, run=None,
+               expect: dict, **kw) -> dict:
+    """``run_device_path`` with its checks: tokens of the run's shape, finite
+    logits, the cache at prompt + new tokens, and each kernel launched
+    exactly as ``expect`` says."""
+    run = run or DEVICE_RUN
+    t0 = time.perf_counter()
+    out = main_path.run_device_path(cfg, mode, params=params, device=dev, serve_cfg=serve_cfg,
+                                    **run, **kw)
+    check(out["tokens"].shape == (run["batch"], run["max_new"]),
+          f"{name}: tokens {out['tokens'].shape}")
+    check(out["logits_finite"], f"{name}: non-finite logits")
+    check(out["length"] == run["prompt_len"] + run["max_new"], f"{name}: length {out['length']}")
+    for kernel, n in out["launches"].items():
+        check(n == expect.get(kernel, 0),
+              f"{name}: {kernel} launched {n} times, expected {expect.get(kernel, 0)}")
+    device_report(name, out, card, t0)
+    return out
+
+
+def llama_device_phase(main_path, cfg, params, dev, card) -> dict:
+    """Llama-3.1-8B at full width through the full-cache device path on the
+    serving path's weights: ``full``, ``kvswap``, and ``kvswap`` with the
+    rolling buffer and cross-layer prediction; returns the two kvswap runs'
+    launches."""
+    from repro_torch.serving.decode import KVSwapServeConfig
+
+    scfg = KVSwapServeConfig(*DEVICE_KVSWAP)
+    n_b = cfg.n_layers * DEVICE_RUN["max_new"]          # one a layer a step
+    device_run(main_path, f"{LLAMA} device path", cfg, "full", params, dev, card, expect={})
+    free_device()
+    kv = device_run(main_path, LLAMA_DEV, cfg, "kvswap", params, dev, card, serve_cfg=scfg,
+                    expect={"gather_attention": n_b})
+    free_device()
+    roll = device_run(main_path, LLAMA_ROLL, cfg, "kvswap", params, dev, card,
+                      serve_cfg=dataclasses.replace(scfg, rolling=True, predict_from="prev"),
+                      expect={"gather_attention": n_b})
+    check(roll["flushes"] == DEVICE_RUN["max_new"] // scfg.rb_len,
+          f"{LLAMA_ROLL}: {roll['flushes']} flushes")
+    free_device()
+    return {LLAMA_DEV: kv["launches"], LLAMA_ROLL: roll["launches"]}
+
+
+def device_reduced(main_path, cfg, params, dev, card) -> None:
+    """At 4 layers (full width): ``kvswap`` with ``n_select`` covering every
+    group against ``full`` on the same forced tokens (within 1e-4 of full's
+    largest |logit|), and the rolling buffer against the direct path
+    (within the reference's 2e-4, of max(1, largest |logit|))."""
+    from repro_torch.serving.decode import KVSwapServeConfig
+
+    run = dict(batch=4, prompt_len=512, max_new=8, max_len=1024)
+    g, _, r = DEVICE_KVSWAP
+    cover = KVSwapServeConfig(g, run["max_len"] // g, r)
+    full = device_run(main_path, f"{LLAMA} device path, 4 layers", cfg, "full", params, dev,
+                      card, run=run, expect={}, keep_logits=True)
+    kw = dict(run=run, forced=full["tokens"], keep_logits=True)
+    n_b = cfg.n_layers * run["max_new"]
+    kv = device_run(main_path, f"{LLAMA} device path, 4 layers, every group", cfg, "kvswap",
+                    params, dev, card, serve_cfg=cover, expect={"gather_attention": n_b}, **kw)
+    roll = device_run(main_path, f"{LLAMA} device path, 4 layers, every group, rolling", cfg,
+                      "kvswap", params, dev, card,
+                      serve_cfg=dataclasses.replace(cover, rolling=True, predict_from="prev"),
+                      expect={"gather_attention": n_b}, **kw)
+    big = max(float(t.abs().max()) for t in full["logits"])
+    d_kv = max(float((a - b).abs().max()) for a, b in zip(kv["logits"], full["logits"]))
+    d_roll = max(float((a - b).abs().max()) for a, b in zip(roll["logits"], kv["logits"]))
+    print(f"4 layers, device path: kvswap selecting every group against full attention on the "
+          f"same tokens: max abs logit diff {d_kv:.3g} (largest |logit| {big:.3g}); rolling "
+          f"buffer against direct: {d_roll:.3g}  [{card}]", flush=True)
+    check(d_kv <= 1e-4 * big, f"4 layers: kvswap over every group differs from full by {d_kv:.3g}")
+    check(d_roll <= 2e-4 * max(1.0, big), f"4 layers: rolling differs from direct by {d_roll:.3g}")
+
+
+def zamba_device_phase(main_path, registry, dev, card) -> dict:
+    """Zamba2-1.2B at full width through the full-cache device path
+    (``kvswap``): kernel C in each Mamba2 block's prefill, kernel B on the
+    shared-attention blocks each step."""
+    from repro_torch.serving.decode import KVSwapServeConfig
+
+    cfg = registry.get(ZAMBA)
+    params = registry.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                                  device=dev)
+    n_mamba, n_kv = cfg.blocks.count("mamba2"), len(cfg.kv_layers)
+    run = device_run(main_path, ZAMBA_DEV, cfg, "kvswap", params, dev, card,
+                     serve_cfg=KVSwapServeConfig(*DEVICE_KVSWAP),
+                     expect={"ssd_chunk": n_mamba,
+                             "gather_attention": n_kv * DEVICE_RUN["max_new"]})
+    return run["launches"]
+
+
+def whisper_phase(main_path, registry, ecfg, entries, dev, card) -> dict:
+    """Whisper-large-v3 at full width (32 + 32 layers): the encoder over 4
+    seeded frame sequences, ``KVSwapEngine.generate`` over 4 x 2048 decoder
+    tokens (the engine's host-gather route), then the same weights through
+    the full-cache device path (``kvswap``); returns both runs' launches."""
+    from repro_torch.serving.decode import KVSwapServeConfig
+
+    t0 = time.perf_counter()
+    weights = main_path.whisper_weights(registry.get(WHISPER), device=dev,
+                                        batch=DEVICE_RUN["batch"])
+    cfg, params, enc_out, enc_s = weights
+    n_params = tree_numel(params)
+    print(f"{WHISPER}: {cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads = {cfg.n_kv_heads} KV heads, head_dim "
+          f"{cfg.head_dim}, {n_params / 1e9:.3f} B parameters; encoder over "
+          f"{DEVICE_RUN['batch']} x {cfg.enc_frames} frames {enc_s * 1e3:.1f} ms  [{card}]",
+          flush=True)
+    run = main_path.run_whisper_path(cfg, weights=weights, device=dev, engine_cfg=ecfg,
+                                     prompt_len=DEVICE_RUN["prompt_len"],
+                                     max_new=DEVICE_RUN["max_new"])
+    steps = run["decode_steps"]
+    check(run["tokens"].shape == (DEVICE_RUN["batch"], DEVICE_RUN["max_new"]),
+          f"{WHISPER}: tokens {run['tokens'].shape}")
+    check(run["logits_finite"], f"{WHISPER}: non-finite logits")
+    check(run["host_gather"], f"{WHISPER}: the engine did not take its host-gather route")
+    for kernel, n in run["launches"].items():
+        check(n == steps * cfg.n_layers,
+              f"{WHISPER}: {kernel} launched {n} times, expected {steps} steps x {cfg.n_layers}")
+    walls = run["decode_step_wall_seconds"]
+    med = statistics.median(walls) * 1e3
+    wait_ms = statistics.median(run["decode_step_io_wait_seconds"]) * 1e3
+    kern_ms = step_kernels_ms(entries, WHISPER, run["launches"], steps)
+    print(f"{WHISPER} path (engine, host gather): prefill wall {run['prefill_seconds'] * 1e3:.1f}"
+          f" ms; {steps} decode steps, launches {run['launches']}; decode step median "
+          f"{med:.1f} ms = wait on group reads {wait_ms:.1f} ms + kernels A, B {kern_ms:.2f} ms "
+          f"+ rest {med - wait_ms - kern_ms:.1f} ms; {run['tokens_per_s']:.1f} tokens/s over "
+          f"generate ({run['wall_seconds']:.2f} s); peak device memory "
+          f"{run['peak_memory_bytes'] / 2**30:.2f} GiB; total {time.perf_counter() - t0:.1f} s"
+          f"  [{card}]", flush=True)
+    launches = run["launches"]
+    del run
+    free_device()
+    dev_run = device_run(main_path, WHISPER_DEV, cfg, "kvswap", params, dev, card,
+                         serve_cfg=KVSwapServeConfig(*DEVICE_KVSWAP), enc_out=enc_out,
+                         expect={"gather_attention": cfg.n_layers * DEVICE_RUN["max_new"]})
+    return {WHISPER: launches, WHISPER_DEV: dev_run["launches"]}
+
+
+def xlstm_phase(main_path, registry, dev, card) -> None:
+    """xLSTM-1.3B at full width (48 blocks) through the full-cache device
+    path: no kernel runs.  Then two of its blocks (the first mLSTM and the
+    first sLSTM): prefill plus steps against the teacher-forced forward."""
+    from repro_torch.models import transformer as T
+
+    cfg = registry.get(XLSTM)
+    params = registry.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                                  device=dev)
+    print(f"{XLSTM}: {cfg.n_layers} blocks ({cfg.blocks.count('mlstm')} mLSTM, "
+          f"{cfg.blocks.count('slstm')} sLSTM), d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters  [{card}]", flush=True)
+    device_run(main_path, f"{XLSTM} device path", cfg, "full", params, dev, card, run=XLSTM_RUN,
+               expect={})
+    free_device()
+    pick = [cfg.blocks.index("mlstm"), cfg.blocks.index("slstm")]
+    cfg2 = dataclasses.replace(cfg, n_layers=2, block_pattern=("mlstm", "slstm"))
+    params2 = {**params, "blocks": [params["blocks"][i] for i in pick]}
+    run = dict(batch=4, prompt_len=256, max_new=8, max_len=256 + 8 + 4)
+    out = device_run(main_path, f"{XLSTM} device path, 2 blocks", cfg2, "full", params2, dev,
+                     card, run=run, expect={}, keep_logits=True)
+    toks = torch.cat([torch.as_tensor(main_path.device_prompts(
+        cfg.vocab_size, batch=run["batch"], prompt_len=run["prompt_len"], seed=0)),
+        torch.as_tensor(out["tokens"])], 1).to(dev)
+    ref = T.forward(params2, cfg2, toks)[:, run["prompt_len"] - 1:-1].cpu()
+    got = torch.stack(out["logits"], 1)
+    err = float((got - ref).abs().max())
+    big = max(1.0, float(ref.abs().max()))
+    print(f"{XLSTM}, 2 blocks: prefill and {run['max_new']} steps against the teacher-forced "
+          f"forward: max abs logit diff {err:.3g} (largest |logit| {big:.3g})  [{card}]",
+          flush=True)
+    check(err <= 2e-4 * big, f"{XLSTM}, 2 blocks: steps differ from the forward by {err:.3g}")
+
+
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of another tree: its kernel B and MoE layer are "
-                         "timed in turns with this tree's")
+                    help="a checkout of another tree: its kernels A and B and its MoE "
+                         "layer are timed in turns with this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -1263,9 +1609,11 @@ def main() -> None:
     entries = kernel_checks(ops, select_groups, dev)
     ecfg = EngineConfig(group_size=4, n_select=100, rank=64, reuse_capacity=160,
                         max_seq=4096, disk="nvme", device_resident=True, async_io=True)
-    _, olmoe_ecfg = tuner_phase(main_path, registry, card)
-    entries += served_entries(main_path, registry, {OLMOE: olmoe_ecfg, **dict.fromkeys(
-        (STABLELM, *DENSE_2L), ecfg)}, ops, select_groups, dev)
+    olmoe_ecfg, tuned_ecfg = tuner_phase(main_path, registry, card)
+    entries += served_entries(main_path, registry, {OLMOE: olmoe_ecfg, TUNED: tuned_ecfg,
+                                                    **dict.fromkeys((STABLELM, *DENSE_2L), ecfg)},
+                              ops, select_groups, dev)
+    entries += device_entries(main_path, registry, ecfg, ops, select_groups, dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     tiny = torch.empty(1, device=dev)
     print(f"timing floor: one launch of a one-element fill {device_ms(tiny.zero_, flush) * 1e3:.2f}"
@@ -1315,25 +1663,37 @@ def main() -> None:
     router_launches = router_phase(run_router_path, cfg, ecfg, weights, dev, card)
     free_device()
     disagg_launches = disagg_phase(run_disagg_path, cfg, ecfg, weights, dev, card)
+    free_device()
+    device_launches = llama_device_phase(main_path, cfg, weights[1], dev, card)
     del weights
     free_device()
 
     weights4 = reduced_phases(run_main_path, run_prefix_path, build_weights, cfg, ecfg, dev)
     free_device()
     front_half_reduced(main_path, cfg, ecfg, weights4, dev, card)
+    device_reduced(main_path, dataclasses.replace(cfg, n_layers=4), weights4[1], dev, card)
     del weights4
     free_device()
 
     path_launches = {LLAMA: launches, PREFIX: prefix_launches, ROUTER: router_launches,
-                     DISAGG: disagg_launches,
+                     DISAGG: disagg_launches, **device_launches,
                      ZAMBA: hybrid_phases(run_hybrid_path, zamba2_1p2b.config(), ecfg, dev,
                                           entries, card)}
     free_device()
+    path_launches[ZAMBA_DEV] = zamba_device_phase(main_path, registry, dev, card)
+    free_device()
     path_launches[OLMOE] = moe_phase(main_path, registry, olmoe_ecfg, entries, dev, card)
     free_device()
-    path_launches.update(dense_phases(main_path, registry, ecfg, entries, dev, card))
+    path_launches.update(dense_phases(main_path, registry, ecfg, {TUNED: tuned_ecfg}, entries,
+                                      dev, card))
+    free_device()
+    path_launches.update(whisper_phase(main_path, registry, ecfg, entries, dev, card))
+    free_device()
+    xlstm_phase(main_path, registry, dev, card)
+    free_device()
     for e in entries:
         e["launches"] = path_launches[e["path"]][e["name"]]
+        check(e["launches"] > 0, f"{e['name']} was never launched on the {e['path']} path")
     print(json.dumps({"kernels": [{key: e[key] for key in (
         "name", "path", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for e in entries]}))

@@ -32,6 +32,12 @@
 //   K_lr or q_lr, so the bytes moved follow the valid tokens, not the cache
 //   capacity; the ragged tail (N not a multiple of G) is bounds-checked
 //   here, so the caller pads nothing.
+// * Ranks past 256 take a second instance of the kernel (Wide): the folded
+//   query, r floats, lives in dynamic shared memory, and each token's dot
+//   product runs over the rank in chunks of 256 columns (one register row
+//   a chunk), accumulated in fp32 before the group max.  Its row loads
+//   start after the fold, not before: ranks past 256 only have to be
+//   right, and the r <= 256 instance is left as it was.
 // The folded sum rounds differently from the reference's per-head sum; the
 // wrapper's plain version is held to it at 1e-5 of the row's score scale.
 
@@ -45,7 +51,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLanes = 4;                      // lanes per token
 constexpr int kTokens = kThreads / kLanes;     // tokens per pass
-constexpr int kMaxRank = 256;                  // 4 lanes x 64 floats
+constexpr int kMaxRank = 256;                  // 4 lanes x 64 floats: one register row
+constexpr int kStaticSmem = 48 * 1024;         // dynamic shared memory without opt-in
 constexpr float kNeg = -1e30f;
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -83,16 +90,18 @@ struct Row {
   __device__ __forceinline__ static float mul(float a, float b) { return a * b; }
 };
 
-template <bool Vec>
+template <bool Vec, bool Wide>
 __global__ void __launch_bounds__(kThreads)
 lowrank_group_scores_kernel(const float* __restrict__ q_lr,     // [B, H, r]
                             const float* __restrict__ k_lr,     // [B, N, r]
                             const int32_t* __restrict__ valid,  // [B]
                             float* __restrict__ out,            // [B, n_groups]
                             int H, int N, int r, int G, int n_groups, int gpb) {
-  __shared__ __align__(16) float qsum[kMaxRank];
+  __shared__ __align__(16) float qsum_narrow[Wide ? 1 : kMaxRank];
+  extern __shared__ __align__(16) float qsum_wide[];   // [r], Wide only
   __shared__ float part[kThreads];
   __shared__ float sc[kTokens];
+  float* qsum = Wide ? qsum_wide : qsum_narrow;
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -110,34 +119,56 @@ lowrank_group_scores_kernel(const float* __restrict__ q_lr,     // [B, H, r]
   const int tok = tid / kLanes, sub = tid - tok * kLanes;
   const int span = ng * G;                     // the block's tokens (some may be masked)
   const float* kb = k_lr + (size_t)b * N * r;
+  const float* qb = q_lr + (size_t)b * H * r;
 
-  // first pass's rows: in flight before the fold, so the two trips overlap
   Row<Vec> row;
   int t = (int)t_first + tok;
   bool live = tok < span && t < vl;
-  row.load(kb + (size_t)t * r, sub, units, live);
-
-  // fold the head sum: (256 / r) threads per column, independent loads
-  const float* qb = q_lr + (size_t)b * H * r;
-  const int per = kThreads / max(r, 1);       // r <= 256
-  if (tid < per * r) {
-    const int c = tid % r;
-    float s = 0.f;
+  if constexpr (Wide) {
+    // fold the head sum: one thread a column, every head
+    for (int c = tid; c < r; c += kThreads) {
+      float s = 0.f;
 #pragma unroll 8
-    for (int h = tid / r; h < H; h += per) s += __ldg(qb + (size_t)h * r + c);
-    part[tid] = s;
-  }
-  __syncthreads();
-  if (tid < r) {
-    float s = 0.f;
-    for (int j = 0; j < per; ++j) s += part[j * r + tid];
-    qsum[tid] = s;
+      for (int h = 0; h < H; ++h) s += __ldg(qb + (size_t)h * r + c);
+      qsum[c] = s;
+    }
+  } else {
+    // first pass's rows: in flight before the fold, so the two trips overlap
+    row.load(kb + (size_t)t * r, sub, units, live);
+
+    // fold the head sum: (256 / r) threads per column, independent loads
+    const int per = kThreads / max(r, 1);     // r <= 256
+    if (tid < per * r) {
+      const int c = tid % r;
+      float s = 0.f;
+#pragma unroll 8
+      for (int h = tid / r; h < H; h += per) s += __ldg(qb + (size_t)h * r + c);
+      part[tid] = s;
+    }
+    __syncthreads();
+    if (tid < r) {
+      float s = 0.f;
+      for (int j = 0; j < per; ++j) s += part[j * r + tid];
+      qsum[tid] = s;
+    }
   }
   __syncthreads();
 
   float best = kNeg;
   for (int pass = 0;;) {
-    float s = row.dot(qsum, sub, units);
+    float s;
+    if constexpr (Wide) {
+      // the rank in chunks of 256 columns, one register row each
+      constexpr int kChunk = Vec ? kMaxRank / 4 : kMaxRank;   // units a chunk
+      s = 0.f;
+      for (int u0 = 0; u0 < units; u0 += kChunk) {
+        const int col = Vec ? 4 * u0 : u0;
+        row.load(kb + (size_t)t * r + col, sub, min(kChunk, units - u0), live);
+        s += row.dot(qsum + col, sub, min(kChunk, units - u0));
+      }
+    } else {
+      s = row.dot(qsum, sub, units);
+    }
     s += __shfl_xor_sync(kAll, s, 1);
     s += __shfl_xor_sync(kAll, s, 2);
     if (live) best = fmaxf(best, s);
@@ -145,7 +176,7 @@ lowrank_group_scores_kernel(const float* __restrict__ q_lr,     // [B, H, r]
     const int local = pass * kTokens + tok;
     t = (int)t_first + local;
     live = local < span && t < vl;
-    row.load(kb + (size_t)t * r, sub, units, live);
+    if constexpr (!Wide) row.load(kb + (size_t)t * r, sub, units, live);
   }
   if (sub == 0) sc[tok] = best;
   __syncthreads();
@@ -160,27 +191,44 @@ lowrank_group_scores_kernel(const float* __restrict__ q_lr,     // [B, H, r]
   }
 }
 
+template <bool Vec, bool Wide>
+int launch(const float* q_lr, const float* k_lr, const int32_t* valid, float* out,
+           int H, int N, int r, int G, int n_groups, int gpb, dim3 grid, cudaStream_t st) {
+  auto kernel = lowrank_group_scores_kernel<Vec, Wide>;
+  const size_t smem = Wide ? (size_t)r * sizeof(float) : 0;
+  if (smem > kStaticSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kThreads, smem, st>>>(q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb);
+  return 0;
+}
+
 }  // namespace
 
 // q_lr [B,H,r] f32, k_lr [B,N,r] f32, valid [B] i32 -> out [B, ceil(N/G)] f32.
-// All contiguous and 16-byte aligned on the current device; r <= 256, G >= 1.
-// Launches on `stream`.  Returns cudaGetLastError() as an int (0 = success).
+// All contiguous and 16-byte aligned on the current device; r >= 0 (past 256
+// the wide instance, whose r floats of shared memory must fit the card's
+// opt-in limit), G >= 1.  Launches on `stream`.  Returns a CUDA error code
+// as an int (0 = success).
 extern "C" int lowrank_group_scores_f32(const float* q_lr, const float* k_lr,
                                         const int32_t* valid, float* out,
                                         int B, int H, int N, int r, int G,
                                         void* stream) {
-  if (r < 0 || r > kMaxRank || G < 1) return (int)cudaErrorInvalidValue;
+  if (r < 0 || G < 1) return (int)cudaErrorInvalidValue;
   const int n_groups = (N + G - 1) / G;
   if (B > 0 && n_groups > 0) {
     const int gpb = G <= kTokens ? kTokens / G : 1;   // groups per block
     dim3 grid((n_groups + gpb - 1) / gpb, B);
     cudaStream_t st = (cudaStream_t)stream;
-    if (r % 4 == 0)
-      lowrank_group_scores_kernel<true><<<grid, kThreads, 0, st>>>(
-          q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb);
-    else
-      lowrank_group_scores_kernel<false><<<grid, kThreads, 0, st>>>(
-          q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb);
+    const bool vec = r % 4 == 0, wide = r > kMaxRank;
+    const int err =
+        vec ? (wide ? launch<true, true>(q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb, grid, st)
+                    : launch<true, false>(q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb, grid, st))
+            : (wide ? launch<false, true>(q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb, grid, st)
+                    : launch<false, false>(q_lr, k_lr, valid, out, H, N, r, G, n_groups, gpb, grid, st));
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -84,7 +84,8 @@ def lowrank_group_scores_plain(q_lr: torch.Tensor, k_lr: torch.Tensor,
 def lowrank_group_scores(q_lr: torch.Tensor, k_lr: torch.Tensor,
                          valid_len: torch.Tensor, *, group_size: int) -> torch.Tensor:
     """Paper Eq. 1 group scores: ``q_lr [B,H,r]`` f32, ``k_lr [B,N,r]`` f32,
-    ``valid_len [B]`` int32 → ``[B, ceil(N/G)]`` f32."""
+    ``valid_len [B]`` int32 → ``[B, ceil(N/G)]`` f32.  The kernel takes any
+    rank in one launch (past 256 it goes over the rank in chunks of 256)."""
     if k_lr.device.type == "cpu":
         return lowrank_group_scores_plain(q_lr, k_lr, valid_len, group_size=group_size)
     name = "lowrank_group_scores"
@@ -96,8 +97,8 @@ def lowrank_group_scores(q_lr: torch.Tensor, k_lr: torch.Tensor,
     if k_lr.shape != (b, n, r) or valid_len.shape != (b,):
         raise ValueError(f"{name}: shapes q_lr {tuple(q_lr.shape)}, k_lr "
                          f"{tuple(k_lr.shape)}, valid_len {tuple(valid_len.shape)} disagree")
-    if r > 256 or group_size < 1:
-        raise ValueError(f"{name}: needs rank <= 256 and group_size >= 1")
+    if group_size < 1:
+        raise ValueError(f"{name}: needs group_size >= 1")
     out = torch.empty((b, -(-n // group_size)), dtype=torch.float32, device=dev)
     fn = _fn("lowrank_score", "lowrank_group_scores_f32", [_P, _P, _P, _P] + [_I] * 5 + [_P])
     _launch(fn, q_lr.data_ptr(), k_lr.data_ptr(), valid_len.data_ptr(), out.data_ptr(),

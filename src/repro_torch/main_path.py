@@ -42,6 +42,14 @@ captures one decode step's true query and full K and V at one layer, with
 the engine's own selection there, and :func:`probe_fidelity` scores the
 paper's baselines and the engine's selection on them.  Any config the
 registry builds, dense or MoE, serves through :func:`run_main_path`.
+
+:func:`run_device_path` serves a batch through the full-cache device path
+(``serving/decode.py``: ``prefill`` then ``serve_step``, in ``full`` or
+``kvswap`` mode, with the rolling buffer if asked), for any config the
+registry builds, the attention-free xLSTM and Whisper included;
+:func:`run_whisper_path` runs Whisper's encoder output through
+``KVSwapEngine.generate`` (the engine's host-gather route), on weights
+from :func:`whisper_weights`.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import ModelConfig, TransformerAdapter, init_params
 from repro_torch.serving import SLOClass, ServeSession, Trace, mixed_tenant_trace
+from repro_torch.serving import decode as D
 
 KERNELS = (ops.lowrank_group_scores, ops.gather_attention)
 HYBRID_KERNELS = (ops.lowrank_group_scores, ops.gather_attention, ops.ssd_chunk)
@@ -600,6 +609,173 @@ def run_hybrid_path(cfg: ModelConfig, *, device=None, n_layers: int | None = Non
 
 
 # ---------------------------------------------------------------------------
+# the full-cache device path (serving/decode.py) and Whisper through the engine
+# ---------------------------------------------------------------------------
+
+
+def device_prompts(vocab_size: int, *, batch: int, prompt_len: int, seed: int) -> np.ndarray:
+    """:func:`run_device_path`'s prompts: one rectangular batch from numpy
+    ``seed``."""
+    return np.random.default_rng(seed).integers(0, vocab_size, (batch, prompt_len))
+
+
+def _cut_blocks(cfg, n_layers: int | None):
+    """``cfg`` cut to its first ``n_layers`` blocks (Whisper: that many
+    encoder and decoder layers each); widths stay the config's."""
+    if n_layers is None:
+        return cfg
+    if type(cfg).__name__ == "WhisperConfig":
+        return dataclasses.replace(cfg, n_layers=n_layers, n_enc_layers=n_layers)
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               block_pattern=cfg.block_pattern[:n_layers])
+
+
+def run_device_path(cfg, mode: str, *, device=None, n_layers: int | None = None,
+                    params: dict | None = None,
+                    serve_cfg: D.KVSwapServeConfig | None = None, batch: int = 4,
+                    prompt_len: int = 2048, max_new: int = 32, max_len: int = 4096,
+                    seed: int = 0, enc_out: torch.Tensor | None = None,
+                    forced: np.ndarray | None = None, keep_logits: bool = False) -> dict:
+    """Serve ``batch`` seeded prompts of ``prompt_len`` tokens through the
+    full-cache device path, as ``repro_torch.launch.serve --engine device``
+    does: ``decode.prefill``, then ``max_new`` calls of ``decode.serve_step``,
+    each fed the previous logits' greedy token (or ``forced[:, t]``, to hold
+    two runs to one token sequence).
+
+    ``mode`` is ``"full"`` (masked attention over the whole cache) or
+    ``"kvswap"`` (``serve_cfg``'s grouped selection, kernel B on the card;
+    with ``serve_cfg.rolling`` the rolling buffer is flushed every
+    ``rb_len`` steps).  ``n_layers`` keeps the first blocks (widths stay the
+    config's); ``params`` (for the cut config) skips drawing random weights
+    from ``seed``; ``kvswap`` attaches random orthonormal adapters from
+    ``seed``.  ``enc_out`` is Whisper's encoder output.  Every kernel's
+    launch count is set to 0 just before the prefill and read just after
+    the last step; peak device memory is counted from there too.
+    ``keep_logits`` returns the prefill's and every step's logits on the
+    host."""
+    from repro_torch.configs import registry
+
+    if mode not in ("full", "kvswap"):
+        raise ValueError(f"mode must be 'full' or 'kvswap', got {mode!r}")
+    dev = resolve(device)
+    cfg = _cut_blocks(cfg, n_layers)
+    if params is None:
+        params = registry.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                                      device=dev)
+    scfg = (serve_cfg or D.KVSwapServeConfig()) if mode == "kvswap" else None
+    if scfg is not None:
+        params = D.attach_kvswap_adapters(
+            params, cfg, scfg.rank, generator=torch.Generator(device=dev).manual_seed(seed + 2))
+    prompts = torch.as_tensor(device_prompts(cfg.vocab_size, batch=batch,
+                                             prompt_len=prompt_len, seed=seed), device=dev)
+    cache = D.init_cache(cfg, batch, max_len, kvswap=scfg, device=dev)
+    step_wall, kept, toks, flushes = [], [], [], 0
+    with _counted(HYBRID_KERNELS, dev) as launches:
+        t0 = time.perf_counter()
+        logits, cache = D.prefill(params, cfg, prompts, cache, kvswap=scfg, enc_out=enc_out)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        for t in range(max_new):
+            if keep_logits:
+                kept.append(logits.cpu())
+            nxt = (logits.argmax(-1)[:, None] if forced is None
+                   else torch.as_tensor(forced[:, t:t + 1], device=dev))
+            toks.append(nxt[:, 0])
+            t1 = time.perf_counter()
+            logits, cache = D.serve_step(params, cfg, nxt, cache, kvswap=scfg, enc_out=enc_out)
+            if scfg is not None and scfg.rolling and \
+                    cache["length"] - cache["main_len"] == scfg.rb_len:
+                cache = D.flush_rolling(params, cfg, cache, scfg)
+                flushes += 1
+            _sync(dev)
+            step_wall.append(time.perf_counter() - t1)
+            finite = finite and bool(torch.isfinite(logits).all())
+        peak = _peak(dev)
+    decode_s = sum(step_wall)
+    return {"tokens": torch.stack(toks, 1).cpu().numpy(), "mode": mode,
+            "n_layers": cfg.n_layers, "launches": launches, "logits_finite": finite,
+            "prefill_seconds": prefill_s, "decode_step_wall_seconds": step_wall,
+            "tokens_per_s": batch * max_new / decode_s, "peak_memory_bytes": peak,
+            "length": cache["length"], "flushes": flushes,
+            "logits": kept if keep_logits else None}
+
+
+def whisper_weights(cfg, *, device=None, n_layers: int | None = None, batch: int = 4,
+                    seed: int = 0) -> tuple:
+    """``(cfg, params, enc_out, encode_seconds)`` for :func:`run_whisper_path`
+    and :func:`run_device_path`: ``cfg`` cut to ``n_layers`` (encoder and
+    decoder alike), random weights from ``seed``, and the encoder run once
+    over ``batch`` seeded frame embeddings ``[batch, enc_frames, d_model]``
+    (the stubbed front end's output)."""
+    from repro_torch.models import whisper as W
+
+    dev = resolve(device)
+    cfg = _cut_blocks(cfg, n_layers)
+    params = W.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    frames = torch.randn((batch, cfg.enc_frames, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    _sync(dev)
+    t0 = time.perf_counter()
+    enc_out = W.encode(params, cfg, frames)
+    _sync(dev)
+    return cfg, params, enc_out, time.perf_counter() - t0
+
+
+def run_whisper_path(cfg, *, device=None, n_layers: int | None = None,
+                     weights: tuple | None = None, batch: int = 4,
+                     engine_cfg: EngineConfig | None = None, prompt_len: int = 2048,
+                     max_new: int = 32, seed: int = 0) -> dict:
+    """Generate ``max_new`` greedy decoder tokens for ``batch`` seeded
+    prompts of ``prompt_len`` tokens through ``KVSwapEngine.generate``, with
+    the encoder's output over seeded frames set on the adapter
+    (``set_encoder_output``).  Whisper's adapter has no ``gather_context``,
+    so the engine assembles each step's context on the host whatever
+    ``engine_cfg.device_resident`` says.
+
+    ``weights`` from :func:`whisper_weights` (same ``cfg``, ``n_layers``,
+    ``batch`` and ``seed``) skips building the model and running the
+    encoder.  The low-rank adapter is fitted from decoder layer 0's K on one
+    calibration prompt (with the first row's encoder output).  Every
+    kernel's launch count is set to 0 just before ``generate`` and read
+    just after."""
+    from repro_torch.models.whisper import WhisperAdapter
+
+    dev = resolve(device)
+    cfg, params, enc_out, encode_s = weights or whisper_weights(
+        cfg, device=dev, n_layers=n_layers, batch=batch, seed=seed)
+    ecfg = engine_cfg or EngineConfig()
+    rng = np.random.default_rng(seed)
+    calib = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)), device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (enc_out.shape[0], prompt_len))
+    model = WhisperAdapter(cfg)
+    model.set_encoder_output(params, enc_out[:1])
+    pos = torch.arange(prompt_len, device=dev)[None]
+    _, k0, _ = model.prefill_block(params, 0, model.embed(params, calib), pos)
+    adapter = fit_adapter(k0[0].cpu().numpy(), rank=ecfg.rank, device=dev)
+    del k0
+    model.set_encoder_output(params, enc_out)
+    with KVSwapEngine(model, params, ecfg, batch=enc_out.shape[0], adapter=adapter,
+                      device=dev) as engine, \
+            _watched(engine, dev, "prefill", "decode_step") as rec:
+        with _counted(KERNELS, dev) as launches:
+            t_start = time.perf_counter()
+            tokens = engine.generate(prompts, max_new)
+            wall = time.perf_counter() - t_start
+        io_wait = [s.io_wait_seconds for s in engine.step_log]
+        host_gather = not engine.device_resident
+        peak = _peak(dev)
+    return {
+        "tokens": tokens, "n_layers": cfg.n_layers, "decode_steps": len(io_wait),
+        "launches": launches, "logits_finite": rec["finite"], "host_gather": host_gather,
+        "encode_seconds": encode_s, "wall_seconds": wall, "tokens_per_s": tokens.size / wall,
+        "prefill_seconds": rec["prefill"][0], "decode_step_wall_seconds": rec["decode_step"],
+        "decode_step_io_wait_seconds": io_wait, "peak_memory_bytes": peak,
+    }
+
+
+# ---------------------------------------------------------------------------
 # the serving front half: the KV-affinity router and disaggregated prefill
 # ---------------------------------------------------------------------------
 
@@ -992,8 +1168,7 @@ def tuned_engine_config(cfg: ModelConfig, *, b_max: int, s_max: int, budget_byte
     under a per-batch budget of ``budget_bytes`` on ``disk``, and the
     ``EngineConfig`` that takes its ``group_size``, ``n_select``, ``rank``
     and ``reuse_capacity`` (at least 16), with ``max_seq = s_max`` and
-    ``engine_kw``.  The rank is passed on as tuned: kernel A takes ``rank <=
-    256`` and raises past it."""
+    ``engine_kw``.  The rank is passed on as tuned (kernel A takes any)."""
     tuned = tuner.solve(tuner.TunerInputs(dims=model_dims(cfg), n_layers=cfg.n_layers,
                                           b_max=b_max, s_max=s_max, budget_bytes=budget_bytes,
                                           disk=disk))

@@ -1,7 +1,8 @@
-"""Shared building blocks of the attention path: norms, RoPE, GQA attention,
-SwiGLU and top-k routed MoE — the PyTorch port of :mod:`repro.models.layers`
-(attention, dense MLP and MoE; the reference's MoE sharding annotations
-belong to the distributed slice and are not here).
+"""Shared building blocks of the attention path: norms (RMS and layer norm),
+RoPE, GQA attention (causal, chunked, bidirectional and one-token decode),
+SwiGLU, the GELU MLP and top-k routed MoE — the PyTorch port of
+:mod:`repro.models.layers` (the reference's MoE sharding annotations belong
+to the distributed slice and are not here).
 
 Plain functions on tensors; params are plain dicts of tensors with the
 reference's layout (weights ``[in, out]``, applied as ``x @ w``).  Decode
@@ -32,6 +33,20 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(dim: int, *, device=None, dtype=torch.float32) -> dict:
+    return {"scale": torch.ones(dim, device=device, dtype=dtype),
+            "bias": torch.zeros(dim, device=device, dtype=dtype)}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in fp32 (biased variance, as the reference)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # RoPE (split-halves convention, as the reference)
 # --------------------------------------------------------------------------
@@ -59,6 +74,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 # GQA attention
 # --------------------------------------------------------------------------
+
+
+def dense_init(fan_in: int, fan_out: int, *, generator: torch.Generator, device,
+               dtype=torch.float32, scale: float | None = None) -> torch.Tensor:
+    """``N(0, scale²)`` weights ``[fan_in, fan_out]``, drawn from ``generator``;
+    ``scale`` defaults to ``1/sqrt(fan_in)``, as the reference's."""
+    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn((fan_in, fan_out), generator=generator, device=device,
+                       dtype=dtype).mul_(s)
+
+
+def init_attention(*, generator: torch.Generator, device, d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, dtype=torch.float32) -> dict:
+    """Q, K, V and O projections in the reference layout, ``N(0, 1/fan_in)``."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {"wq": dense_init(d_model, n_heads * head_dim, **kw),
+            "wk": dense_init(d_model, n_kv_heads * head_dim, **kw),
+            "wv": dense_init(d_model, n_kv_heads * head_dim, **kw),
+            "wo": dense_init(n_heads * head_dim, d_model, **kw)}
 
 
 def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
@@ -125,6 +159,20 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", w, vq)
 
 
+def bidirectional_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Encoder / cross attention.  q [B,Sq,H,d], k/v [B,Sk,Hk,d]; ``mask
+    [B,Sk]`` (optional) keeps the keys it marks."""
+    h, hk = q.shape[2], k.shape[2]
+    kq = repeat_kv(k, h // hk)
+    vq = repeat_kv(v, h // hk)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kq) / math.sqrt(q.shape[-1])
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :], torch.finfo(scores.dtype).min)
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vq)
+
+
 def decode_attention(q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
                      ctx_mask: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor) -> torch.Tensor:
@@ -178,6 +226,22 @@ def gather_slots(dev_k: torch.Tensor, dev_v: torch.Tensor, slots: torch.Tensor,
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def init_gelu_mlp(*, generator: torch.Generator, device, d_model: int, d_ff: int,
+                  dtype=torch.float32) -> dict:
+    """GELU MLP weights in the reference layout: dense ``N(0, 1/fan_in)``,
+    biases 0."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {"w_up": dense_init(d_model, d_ff, **kw),
+            "b_up": torch.zeros(d_ff, device=device, dtype=dtype),
+            "w_down": dense_init(d_ff, d_model, **kw),
+            "b_down": torch.zeros(d_model, device=device, dtype=dtype)}
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation, so is this one's."""
+    return F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh") @ p["w_down"] + p["b_down"]
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Mamba2 (SSD) blocks — the PyTorch port of the Mamba2 half of
+"""Mamba2 (SSD) and xLSTM (mLSTM, sLSTM) blocks — the PyTorch port of
 :mod:`repro.models.ssm`.
 
 Mamba2 carries O(1) decode state (a causal-conv window and the SSD state
@@ -12,6 +12,12 @@ version on the CPU); across chunks the state is carried by a Python loop
 over chunks.  The recurrence runs in fp32, as the reference's does.
 Functions keep the reference's layouts (``[B, nc, Q, H, P]`` and so on),
 and params are plain dicts of tensors in the reference's layout.
+
+The xLSTM blocks (arXiv:2405.04517) carry O(1) state too: the mLSTM a
+matrix memory ``c [B, H, d, d]`` with its normaliser and stabiliser, the
+sLSTM a scalar memory with a true hidden recurrence.  Their full-sequence
+forward is the reference's scan over time, as a Python loop over tokens
+(no chunkwise-parallel form), and they launch no kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import dense_init, rmsnorm
 
 
 def init_mamba2(*, generator: torch.Generator, device, d_model: int, d_state: int,
@@ -35,10 +41,7 @@ def init_mamba2(*, generator: torch.Generator, device, d_model: int, d_state: in
     n_heads = d_inner // head_p
     conv_dim = d_inner + 2 * d_state
     kw = dict(generator=generator, device=device, dtype=dtype)
-
-    def dense(fan_in: int, fan_out: int) -> torch.Tensor:
-        return torch.randn((fan_in, fan_out), **kw).mul_(1.0 / math.sqrt(fan_in))
-
+    dense = lambda fan_in, fan_out: dense_init(fan_in, fan_out, **kw)
     return {
         # projects to [z (gate), x, B, C, dt]
         "in_proj": dense(d_model, 2 * d_inner + 2 * d_state + n_heads),
@@ -182,3 +185,167 @@ def mamba2_step(p, x: torch.Tensor, state: dict):
     y = y.reshape(bsz, nh * hp)
     y = rmsnorm(p["norm"], y * F.silu(z[:, 0]))
     return y @ p["out_proj"], {"conv": conv[:, :, 1:], "ssm": h}
+
+
+# --------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory) and sLSTM (scalar memory, hidden recurrence)
+# --------------------------------------------------------------------------
+
+
+def init_mlstm(*, generator: torch.Generator, device, d_model: int, n_heads: int,
+               dtype=torch.float32) -> dict:
+    """Random mLSTM weights with the reference's scales: Q, K, V and O
+    ``N(0, 1/d_model)``, the gate projection ``N(0, 0.02²)``, input-gate
+    bias 0 and forget-gate bias 3."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "wq": dense_init(d_model, d_model, **kw),
+        "wk": dense_init(d_model, d_model, **kw),
+        "wv": dense_init(d_model, d_model, **kw),
+        "w_if": dense_init(d_model, 2 * n_heads, scale=0.02, **kw),
+        "b_if": torch.cat([torch.zeros(n_heads, device=device, dtype=dtype),
+                           torch.full((n_heads,), 3.0, device=device, dtype=dtype)]),
+        "wo": dense_init(d_model, d_model, **kw),
+        "norm": {"scale": torch.ones(d_model // n_heads, device=device, dtype=dtype)},
+    }
+
+
+def mlstm_meta(p) -> dict:
+    n_heads = p["b_if"].shape[0] // 2
+    return {"n_heads": n_heads, "head_dim": p["wq"].shape[0] // n_heads}
+
+
+def mlstm_init_state(p, batch: int, dtype=torch.float32) -> dict:
+    m = mlstm_meta(p)
+    h, d = m["n_heads"], m["head_dim"]
+    dev = p["wq"].device
+    return {
+        "c": torch.zeros((batch, h, d, d), dtype=dtype, device=dev),   # matrix memory
+        "n": torch.zeros((batch, h, d), dtype=dtype, device=dev),      # normaliser
+        "m": torch.full((batch, h), float("-inf"), dtype=dtype, device=dev),  # stabiliser
+    }
+
+
+def _mlstm_gates(p, x: torch.Tensor):
+    h = mlstm_meta(p)["n_heads"]
+    g = x @ p["w_if"] + p["b_if"]
+    return g[..., :h], g[..., h:]          # pre-activation i, f
+
+
+def _mlstm_cell(p, state: dict, q, k, v, i_pre, f_pre):
+    """One step.  ``q, k, v [B,H,d]``; ``i_pre, f_pre [B,H]``."""
+    d = q.shape[-1]
+    m_prev = state["m"]
+    logf = -F.softplus(-f_pre)                          # log sigmoid(f)
+    m_new = torch.maximum(logf + m_prev, i_pre)
+    i = torch.exp(i_pre - m_new)
+    f = torch.exp(logf + m_prev - m_new)
+    k_s = k / math.sqrt(d)
+    c = f[..., None, None] * state["c"] + i[..., None, None] * (k_s[..., :, None] * v[..., None, :])
+    n = f[..., None] * state["n"] + i[..., None] * k_s
+    denom = torch.maximum(torch.einsum("bhd,bhd->bh", n, q).abs(), torch.exp(-m_new))
+    y = torch.einsum("bhd,bhde->bhe", q, c) / denom[..., None]
+    return {"c": c, "n": n, "m": m_new}, y
+
+
+def mlstm_forward(p, x: torch.Tensor, state: dict | None = None):
+    """``x [B,S,D]`` → ``(y [B,S,D], state)``, one token at a time."""
+    m = mlstm_meta(p)
+    h, hd = m["n_heads"], m["head_dim"]
+    bsz, s, dmod = x.shape
+    if state is None:
+        state = mlstm_init_state(p, bsz)
+    q = (x @ p["wq"]).reshape(bsz, s, h, hd)
+    k = (x @ p["wk"]).reshape(bsz, s, h, hd)
+    v = (x @ p["wv"]).reshape(bsz, s, h, hd)
+    ip, fp = _mlstm_gates(p, x)                         # [B,S,H]
+    ys = []
+    for t in range(s):
+        state, y = _mlstm_cell(p, state, q[:, t], k[:, t], v[:, t], ip[:, t], fp[:, t])
+        ys.append(y)
+    ys = rmsnorm(p["norm"], torch.stack(ys, dim=1)).reshape(bsz, s, dmod)
+    return ys @ p["wo"], state
+
+
+def mlstm_step(p, x: torch.Tensor, state: dict):
+    """Single-token decode.  ``x [B, D]`` → ``(y [B, D], state)``."""
+    m = mlstm_meta(p)
+    h, hd = m["n_heads"], m["head_dim"]
+    bsz, dmod = x.shape
+    q = (x @ p["wq"]).reshape(bsz, h, hd)
+    k = (x @ p["wk"]).reshape(bsz, h, hd)
+    v = (x @ p["wv"]).reshape(bsz, h, hd)
+    ip, fp = _mlstm_gates(p, x)
+    state, y = _mlstm_cell(p, state, q, k, v, ip, fp)
+    y = rmsnorm(p["norm"], y).reshape(bsz, dmod)
+    return y @ p["wo"], state
+
+
+def init_slstm(*, generator: torch.Generator, device, d_model: int, n_heads: int,
+               dtype=torch.float32) -> dict:
+    """Random sLSTM weights with the reference's scales: the input
+    projection to ``[z, i, f, o]`` and O ``N(0, 1/d_model)``, the hidden
+    projection ``N(0, 0.02²)``, bias 0."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "w_x": dense_init(d_model, 4 * d_model, **kw),
+        "w_h": dense_init(d_model, 4 * d_model, scale=0.02, **kw),
+        "b": torch.zeros(4 * d_model, device=device, dtype=dtype),
+        "norm": {"scale": torch.ones(d_model // n_heads, device=device, dtype=dtype)},
+        "wo": dense_init(d_model, d_model, **kw),
+    }
+
+
+def slstm_meta(p) -> dict:
+    hd = p["norm"]["scale"].shape[0]
+    return {"n_heads": p["w_x"].shape[0] // hd, "head_dim": hd}
+
+
+def slstm_init_state(p, batch: int, dtype=torch.float32) -> dict:
+    m = slstm_meta(p)
+    shape = (batch, m["n_heads"], m["head_dim"])
+    dev = p["w_x"].device
+    zeros = lambda: torch.zeros(shape, dtype=dtype, device=dev)
+    return {"c": zeros(), "n": zeros(), "h": zeros(),
+            "m": torch.full(shape[:2], float("-inf"), dtype=dtype, device=dev)}
+
+
+def _slstm_cell(p, state: dict, x_t: torch.Tensor):
+    m = slstm_meta(p)
+    nh, hds = m["n_heads"], m["head_dim"]
+    bsz, dmod = x_t.shape
+    g = x_t @ p["w_x"] + state["h"].reshape(bsz, dmod) @ p["w_h"] + p["b"]
+    z, i_pre, f_pre, o = g.chunk(4, dim=-1)
+    rs = lambda t: t.reshape(bsz, nh, hds)
+    z, o = torch.tanh(rs(z)), torch.sigmoid(rs(o))
+    # exponential gating with a per-head stabiliser (head-mean pre-activations)
+    i_h = rs(i_pre).mean(-1)
+    f_h = rs(f_pre).mean(-1)
+    logf = -F.softplus(-f_h)
+    m_new = torch.maximum(logf + state["m"], i_h)
+    i = torch.exp(i_h - m_new)[..., None]
+    f = torch.exp(logf + state["m"] - m_new)[..., None]
+    c = f * state["c"] + i * z
+    n = f * state["n"] + i
+    h_new = o * (c / torch.clamp_min(n, 1.0))
+    return {"c": c, "n": n, "h": h_new, "m": m_new}, h_new
+
+
+def slstm_forward(p, x: torch.Tensor, state: dict | None = None):
+    """``x [B,S,D]`` → ``(y [B,S,D], state)``, one token at a time."""
+    bsz, s, dmod = x.shape
+    if state is None:
+        state = slstm_init_state(p, bsz)
+    hs = []
+    for t in range(s):
+        state, h = _slstm_cell(p, state, x[:, t])
+        hs.append(h)
+    hs = rmsnorm(p["norm"], torch.stack(hs, dim=1)).reshape(bsz, s, dmod)
+    return hs @ p["wo"], state
+
+
+def slstm_step(p, x: torch.Tensor, state: dict):
+    """Single-token decode.  ``x [B, D]`` → ``(y [B, D], state)``."""
+    state, h = _slstm_cell(p, state, x)
+    h = rmsnorm(p["norm"], h).reshape(x.shape[0], -1)
+    return h @ p["wo"], state

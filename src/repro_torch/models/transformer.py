@@ -1,14 +1,15 @@
-"""Decoder stack of the port: dense attention, MoE attention blocks, and the
-Zamba2-style hybrid of Mamba2 blocks with shared-weight attention.
+"""Decoder stack of the port: dense attention, MoE attention blocks, the
+Zamba2-style hybrid of Mamba2 blocks with shared-weight attention, and the
+attention-free xLSTM stack of mLSTM and sLSTM blocks.
 
 :class:`ModelConfig` is the reference's config record, copied; the params
 are a plain dict of tensors with the reference ``init_params`` layout (so
 :mod:`repro_torch.bridge` can load the reference's weights one to one),
 ``forward`` is the teacher-forced full-sequence forward, and
 :class:`TransformerAdapter` is the per-block prefill/decode interface the
-KVSwap engine consumes.  The port builds ``"attn"``, ``"moe_attn"``,
-``"shared_attn"`` and ``"mamba2"`` blocks; ``"mlstm"`` and ``"slstm"``
-raise.
+KVSwap engine consumes.  It builds every block kind of the reference:
+``"attn"``, ``"moe_attn"``, ``"shared_attn"``, ``"mamba2"``, ``"mlstm"`` and
+``"slstm"``.
 """
 
 from __future__ import annotations
@@ -23,17 +24,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
 ATTN_KINDS = ("attn", "moe_attn", "shared_attn")
-BUILT_KINDS = ("attn", "moe_attn", "shared_attn", "mamba2")
-_LATER = {"mlstm": "xLSTM (mlstm)", "slstm": "xLSTM (slstm)"}
-
-
-def _refuse_later_kinds(cfg) -> None:
-    bad = sorted({k for k in cfg.blocks if k not in BUILT_KINDS})
-    if bad:
-        raise NotImplementedError(
-            f"block kinds {bad} are not ported to repro_torch yet ("
-            + ", ".join(_LATER.get(k, k) for k in bad)
-            + "); they come with a later slice of the port (see ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,12 +122,11 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None,
     def norm(dim: int) -> dict:
         return {"scale": torch.ones(dim, device=dev, dtype=dtype)}
 
-    _refuse_later_kinds(cfg)
     d, hd = cfg.d_model, cfg.head_dim
 
     def attention() -> dict:
-        attn = {"wq": dense(d, cfg.n_heads * hd), "wk": dense(d, cfg.n_kv_heads * hd),
-                "wv": dense(d, cfg.n_kv_heads * hd), "wo": dense(cfg.n_heads * hd, d)}
+        attn = L.init_attention(generator=generator, device=dev, d_model=d, n_heads=cfg.n_heads,
+                                n_kv_heads=cfg.n_kv_heads, head_dim=hd, dtype=dtype)
         if cfg.qk_norm:
             attn["q_norm"], attn["k_norm"] = norm(hd), norm(hd)
         return attn
@@ -159,11 +148,18 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None,
         elif kind == "shared_attn":
             # per-block input norm; the attention and MLP weights are shared
             blocks.append({"attn_norm": norm(d)})
-        else:   # mamba2
+        elif kind == "mamba2":
             blocks.append({"norm": norm(d),
                            "mamba": S.init_mamba2(generator=generator, device=dev,
                                                   d_model=d, d_state=cfg.ssm_state,
                                                   expand=cfg.ssm_expand, dtype=dtype)})
+        elif kind in ("mlstm", "slstm"):
+            init = S.init_mlstm if kind == "mlstm" else S.init_slstm
+            blocks.append({"norm": norm(d),
+                           kind: init(generator=generator, device=dev, d_model=d,
+                                      n_heads=cfg.n_heads, dtype=dtype)})
+        else:
+            raise ValueError(f"unknown block kind {kind}")
     params = {
         "embed": _normal((cfg.vocab_size, d), 0.02, **kw),
         "blocks": blocks,
@@ -212,7 +208,7 @@ def block_forward(params, cfg: ModelConfig, layer: int, x: torch.Tensor,
     """Full-sequence forward through one block: ``x [B, S, D]`` → ``(x, aux,
     kv_or_state)`` — ``aux`` the MoE load-balance loss (0 elsewhere),
     ``(k, v)`` post-RoPE for an attention block when ``return_kv``, the new
-    recurrent state for a Mamba2 block."""
+    recurrent state for a state block (Mamba2, mLSTM, sLSTM)."""
     kind = cfg.blocks[layer]
     if kind in ATTN_KINDS:
         nb, attn_p, mlp_holder = _attn_params(params, cfg, layer)
@@ -222,7 +218,13 @@ def block_forward(params, cfg: ModelConfig, layer: int, x: torch.Tensor,
         y, aux = _ffn(params, cfg, layer, mlp_holder, L.rmsnorm(mlp_holder["mlp_norm"], x))
         return x + y, aux, ((k, v) if return_kv else None)
     blk = params["blocks"][layer]
-    y, st = S.mamba2_forward(blk["mamba"], L.rmsnorm(blk["norm"], x), state)
+    h = L.rmsnorm(blk["norm"], x)
+    if kind == "mamba2":
+        y, st = S.mamba2_forward(blk["mamba"], h, state)
+    elif kind == "mlstm":
+        y, st = S.mlstm_forward(blk["mlstm"], h, state)
+    else:
+        y, st = S.slstm_forward(blk["slstm"], h, state)
     return x + y, 0.0, st
 
 
@@ -230,7 +232,6 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
     """Teacher-forced forward: ``tokens [B, S]`` → logits ``[B, S, V]`` (the
     reference also returns the summed MoE load-balance loss, which
     :func:`block_forward` returns block by block)."""
-    _refuse_later_kinds(cfg)
     x = params["embed"][tokens]
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].repeat(b, 1)
@@ -251,12 +252,12 @@ class TransformerAdapter:
     port's stacks.
 
     ``n_layers`` counts **all** blocks; ``layer_kinds`` marks each as
-    ``"kv"`` (attention, KV on disk) or ``"state"`` (Mamba2, recurrent
-    state), so the engine routes state blocks through its state path.
+    ``"kv"`` (attention, KV on disk) or ``"state"`` (Mamba2, mLSTM, sLSTM:
+    recurrent state), so the engine routes state blocks through its state
+    path.
     """
 
     def __init__(self, cfg: ModelConfig):
-        _refuse_later_kinds(cfg)
         self.cfg = cfg
         self.n_layers = len(cfg.blocks)
         self.n_heads = cfg.n_heads
@@ -285,8 +286,8 @@ class TransformerAdapter:
 
     def prefill_state_block(self, params, layer: int, x: torch.Tensor,
                             positions: torch.Tensor):
-        """Prefill through state block ``layer`` (chunked SSD, kernel C on the
-        card) → ``(x_out, state)``."""
+        """Prefill through state block ``layer`` (for Mamba2 the chunked SSD,
+        kernel C on the card) → ``(x_out, state)``."""
         x, _, st = block_forward(params, self.cfg, layer, x, positions)
         return x, st
 
@@ -347,13 +348,26 @@ class TransformerAdapter:
         """One-token step of state block ``layer``: ``x [B, D]`` → ``(x_out,
         state)``."""
         blk = params["blocks"][layer]
-        y, st = S.mamba2_step(blk["mamba"], L.rmsnorm(blk["norm"], x), state)
+        kind = self.cfg.blocks[layer]
+        h = L.rmsnorm(blk["norm"], x)
+        if kind == "mamba2":
+            y, st = S.mamba2_step(blk["mamba"], h, state)
+        elif kind == "mlstm":
+            y, st = S.mlstm_step(blk["mlstm"], h, state)
+        else:
+            y, st = S.slstm_step(blk["slstm"], h, state)
         return x + y, st
 
     def init_state(self, params, layer: int, batch: int) -> dict:
-        if self.cfg.blocks[layer] != "mamba2":
-            raise ValueError(f"layer {layer} has no state")
-        return S.mamba2_init_state(params["blocks"][layer]["mamba"], batch)
+        kind = self.cfg.blocks[layer]
+        blk = params["blocks"][layer]
+        if kind == "mamba2":
+            return S.mamba2_init_state(blk["mamba"], batch)
+        if kind == "mlstm":
+            return S.mlstm_init_state(blk["mlstm"], batch)
+        if kind == "slstm":
+            return S.slstm_init_state(blk["slstm"], batch)
+        raise ValueError(f"layer {layer} has no state")
 
     # -- predictor ---------------------------------------------------------
     def predict_query(self, params, layer: int, x: torch.Tensor,

@@ -36,6 +36,11 @@ SCORE_SHAPES = [(1, 4, 16, 64, 4), (2, 8, 32, 512, 4), (3, 16, 64, 1000, 4),
 # group longer than one 64-token pass
 SCORE_EDGES = [(2, 8, 256, 600, 4), (2, 4, 30, 300, 4), (2, 4, 3, 77, 5),
                (2, 16, 64, 1000, 1), (1, 4, 16, 1000, 100)]
+# kernel A past rank 256 (the rank in chunks of 256): Llama-3.1-8B's tuned
+# shape (rank 512), a last chunk of one float4 (r = 260), the scalar path
+# (r = 513), four chunks with a group longer than one pass
+SCORE_WIDE = [(4, 32, 512, 4096, 4), (2, 8, 260, 300, 4), (2, 4, 513, 200, 4),
+              (1, 8, 1024, 1000, 100)]
 # kernel B's edges: S = 1, one token past a 32-token split, many splits;
 # rep = 8 at d = 128, 32 and 64, rep = 3, rep = 1
 ATTN_EDGES = [(2, 8, 8, 64, 1), (2, 8, 1, 128, 33), (3, 16, 2, 32, 4101),
@@ -114,6 +119,12 @@ class TestCudaKernels:
             vl = torch.tensor([5000, 131], dtype=torch.int32, device=cuda_device)
             got = self._hold_scores(q, k, vl, 4)
             assert float(got.min()) > -1e29, r   # every group has a valid token
+        for b, h, r, n, g in SCORE_WIDE:         # past rank 256: one launch each
+            q, k, vl = (torch.from_numpy(a).to(cuda_device) for a in _score_inputs(6, b, h, r, n))
+            vl[0] = 0
+            before = ops.lowrank_group_scores.launches
+            self._hold_scores(q, k, vl, g)
+            assert ops.lowrank_group_scores.launches == before + 1, r
 
     @staticmethod
     def _hold_scores(q, k, vl, g):

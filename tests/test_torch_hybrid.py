@@ -92,8 +92,17 @@ def test_configs_and_registry_equal_reference():
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-large-v3"])
 def test_registry_refuses_what_the_port_lacks(arch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.smoke(arch)
+    """The last two archs the port lacked are in: the registry returns the
+    reference's configs and their adapters build; only an unknown arch is
+    refused."""
+    from repro_torch.models.whisper import WhisperConfig
+    conv = WhisperConfig if jreg.is_whisper(jreg.get(arch)) else ModelConfig
+    for get, jget in ((registry.get, jreg.get), (registry.smoke, jreg.smoke)):
+        cfg = get(arch)
+        assert cfg == conv(**dataclasses.asdict(jget(arch)))
+        assert registry.is_whisper(cfg) == jreg.is_whisper(jget(arch))
+        model = registry.build_adapter(cfg)
+        assert model.layer_kinds == jreg.build_adapter(jget(arch)).layer_kinds
     with pytest.raises(KeyError):
         registry.get("no-such-arch")
 
@@ -316,8 +325,10 @@ def test_serve_launcher(capsys):
                       "--prompt-len", "24", "--gen-len", "4"])
     assert out.shape == (2, 4)
     assert "modeled nvme throughput" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu", "--engine", "device"])
+    out = serve.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu", "--engine", "device",
+                      "--prompt-len", "24", "--gen-len", "4"])
+    assert out.shape == (2, 4)
+    assert "device path (cpu)" in capsys.readouterr().out
 
 
 def test_hybrid_path_on_cpu():

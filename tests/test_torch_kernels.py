@@ -30,7 +30,8 @@ SCORE_ATOL = 1e-4
 ATTN_ATOL = 1e-5
 
 SCORE_SHAPES = [(1, 4, 16, 64, 4), (2, 8, 32, 512, 4), (3, 16, 64, 1000, 4),
-                (1, 4, 16, 130, 8), (2, 32, 8, 256, 16)]
+                (1, 4, 16, 130, 8), (2, 32, 8, 256, 16),
+                (2, 4, 512, 300, 4)]       # rank 512 (Llama-3.1-8B's tuned rank), 2048 products
 ATTN_SHAPES = [(1, 4, 4, 32, 64), (2, 8, 2, 64, 300), (2, 16, 8, 128, 513),
                (1, 32, 8, 128, 1024), (1, 20, 20, 64, 96), (2, 32, 8, 160, 300)]
 

@@ -148,8 +148,14 @@ class TestInitParams:
 
     @pytest.mark.parametrize("kind", ["mlstm", "slstm"])
     def test_other_block_kinds_refused(self, tiny_cfg, kind):
+        """The xLSTM kinds build in the reference's layout, as state blocks;
+        a kind the reference lacks is refused."""
         cfg = dataclasses.replace(port_cfg(tiny_cfg), block_pattern=("attn", kind))
-        with pytest.raises(NotImplementedError):
-            init_params(cfg, generator=torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError):
-            TransformerAdapter(cfg)
+        want = jax.tree_util.tree_map(lambda a: tuple(a.shape), jinit(
+            jax.random.PRNGKey(0), dataclasses.replace(tiny_cfg, block_pattern=("attn", kind))))
+        got = init_params(cfg, generator=torch.Generator(), device="cpu")
+        assert jax.tree_util.tree_map(lambda t: tuple(t.shape), got) == want
+        assert TransformerAdapter(cfg).layer_kinds == ("kv", "state")
+        bad = dataclasses.replace(cfg, block_pattern=("attn", "conv"))
+        with pytest.raises(ValueError, match="conv"):
+            init_params(bad, generator=torch.Generator(), device="cpu")

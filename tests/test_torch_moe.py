@@ -310,7 +310,8 @@ def test_moe_path_on_cpu():
 
 def test_served_configs_on_cpu(capsys):
     """The StableLM and 2-layer dense paths' ``run_main_path`` calls at smoke
-    widths, and the launcher with ``--engine disk`` on the new archs."""
+    widths, and the launcher with ``--engine disk`` on the new archs and with
+    ``--engine device`` on OLMoE."""
     ecfg = EngineConfig(group_size=4, n_select=10, rank=16, reuse_capacity=16, max_seq=512,
                         device_resident=True, async_io=True)
     for arch in ("stablelm-12b", "granite-8b", "qwen3-32b", "chameleon-34b"):
@@ -322,5 +323,7 @@ def test_served_configs_on_cpu(capsys):
         out = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--prompt-len", "24",
                           "--gen-len", "3"])
         assert out.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu", "--engine", "device"])
+    capsys.readouterr()
+    out = serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu", "--engine", "device",
+                      "--prompt-len", "24", "--gen-len", "3"])
+    assert out.shape == (2, 3) and "device path (cpu)" in capsys.readouterr().out

@@ -20,7 +20,7 @@ from repro_torch.configs import registry
 from repro_torch.core import hardware, tuner
 from repro_torch.main_path import model_dims, tuned_engine_config
 
-PORTED = [a for a in registry.ALL_ARCHS if a not in ("whisper-large-v3", "xlstm-1.3b")]
+PORTED = list(registry.ALL_ARCHS)
 DISKS = ("nvme", "ufs", "emmc")
 BUDGETS_MIB = (8, 40, 96, 310, 1024)
 RTOL = 1e-12
