@@ -23,9 +23,10 @@
    fill); checks kernel B past head_dim 128 (stablelm-12b's d = 160, and
    d = 256; the StableLM path's entry times it) and prints its blocks per
    SM at each width; with ``--parent DIR`` (a checkout of another tree)
-   builds that tree's kernels A and B and times each in turns with this
+   builds that tree's kernels A, B and C and times each in turns with this
    tree's (A at ranks 64, 256 and 30, B at the serving and hybrid paths'
-   shapes; bit-equal outputs required), and does the same for its MoE
+   shapes, C at the Zamba2 prefill's through ``SSDChunk``; bit-equal
+   outputs required), and does the same for its MoE
    layer at the OLMoE path's decode and prefill shapes; runs the tiny
    engine on the card and on the CPU
    and compares every group selection and token (the flipped selections,
@@ -139,7 +140,33 @@
    1024 tokens, 32 new: no kernel launches; and two of its blocks (an
    mLSTM and an sLSTM) whose prefill and steps must equal the
    teacher-forced forward within 2e-4 of max(1, the largest |logit|);
-15. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
+15. drives the sequence-sharded decode attention (``serving/distributed.py``)
+   at the reference's long_500k shape at Llama-3.1-8B width (B 1, H 32,
+   H_kv 8, d 128, N 524288, r 64, G 4, M 100, 500,000 tokens, one layer of
+   fp32 K/V): at world 1 over NCCL in this process, and at world 4 over
+   gloo in four spawned processes on this one card, each rank making only
+   its own 131,072-token shard; each output within 1e-5 of max(1, |o|max)
+   of the port's ``reference_decode_attn`` with the same number of shards,
+   each shard's selected groups equal to the plain scores' (or every flip
+   printed and within kernel A's 1e-5), kernel A launched once a rank a
+   call; prints the step median over 20 calls (the slowest rank's), kernel
+   A's time a shard against its bound and the combine's time and bytes;
+   then Llama-3.1-8B at full width cut to 2 layers, its params distributed
+   over a 1x1 NCCL mesh: ``forward`` on the DTensors within 1e-6 of the
+   largest |logit| of the plain ``forward`` (bit-equality printed);
+16. trains Zamba2-1.2B at full width and depth (fp32, B 2 x S 1024, AdamW
+   lr 1e-3, warmup 2): 8 steps over one batch (every loss finite, the last
+   below the first, kernel C launched 32 times a forward), then 4 steps of
+   ``train_loop`` with ``remat=True`` (64 launches a step: the forward and
+   the recompute); prints the step median, tokens/s, peak memory, one
+   forward's and one backward's wall; kernel C's forward and its plain
+   backward are timed and its grads held to the plain version's at the
+   path's shapes; then at Llama-3.1-8B width cut to 2 layers (B 2 x S
+   512): ``accum_steps`` 2 against 1 (loss within 1e-5 relative, params
+   within 2e-6), ``remat`` against none (loss and grads within 1e-6,
+   bit-equality printed), and a ``save_pytree`` / ``load_pytree`` round
+   trip, bit-equal;
+17. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
    path that runs it (``path``): its time, bound, plain and library times
    at that path's shapes, and ``launches`` in that path's main run, counted
    from 0 just before it (every entry's above 0); then, last, the
@@ -207,6 +234,19 @@ XLSTM_RUN = dict(batch=4, prompt_len=1024, max_new=32, max_len=1024 + 32 + 4)
 DEVICE_KVSWAP = (4, 100, 64)
 # kernel C at the Zamba2 prefill: B 4, S 2048 in 16 chunks of Q 128, H 64, P 64, N 64
 ZAMBA_SSD = dict(b=4, nc=16, q=128, h=64, p=64, n=64)
+# the sequence-sharded decode at the reference's long_500k attention shape
+# (benchmarks/shardmap_ab.py): Llama-3.1-8B width, B 1, N 524288 in blocks
+# of 131072 (one a rank at world 4), r 64, G 4, M 100, 500,000 tokens; one
+# layer of fp32 K/V (4.3 GB; 32 layers would be 137 GB)
+SEQSHARD = "llama3-8b-seqshard"
+SEQSHARD_SPEC = dict(b=1, h=32, hk=8, d=128, r=64, n=524288, block=131072, group_size=4)
+SEQSHARD_CASE = {"length": 500_000, "n_select": 100}
+SEQSHARD_REPS = 20                               # timed calls after the checked one
+# Zamba2-1.2B trained at full width and depth: B 2, S 1024, AdamW lr 1e-3,
+# warmup 2; 8 steps over one batch, then 4 of train_loop with remat
+TRAIN = "zamba2-1.2b-train"
+TRAIN_RUN = dict(batch=2, seq_len=1024, fixed_steps=8, loop_steps=4, lr=1e-3, warmup=2)
+TRAIN_SSD = dict(b=2, nc=8, q=128, h=64, p=64, n=64)   # kernel C in its forward
 # each kernel's source and the TPU kernel it replaces
 SOURCES = {"lowrank_group_scores": ("lowrank_score.cu", "src/repro/kernels/lowrank_score.py:23"),
            "gather_attention": ("gather_attention.cu", "src/repro/kernels/gather_attention.py:28"),
@@ -669,12 +709,33 @@ def parent_scores(parent: Path, dev):
     return call
 
 
+def parent_ssd(parent: Path, dev):
+    """Kernel C as the tree at ``parent`` builds it, as a callable of ``(xh,
+    bm, cm, dt, cum)``; the C entry point is the same."""
+    import ctypes
+
+    fn = parent_lib(parent, "ssd_chunk", dev).ssd_chunk_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+    def call(xh, bm, cm, dt, cum):
+        b, nc, q, h, p = xh.shape
+        o = torch.empty_like(xh)
+        err = fn(xh.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), cum.data_ptr(),
+                 o.data_ptr(), b * nc, q, h, p, bm.shape[-1],
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"the parent's kernel C failed to launch: CUDA error {err}")
+        return o
+    return call
+
+
 def against_parent(ops, parent: Path, dev, card) -> None:
-    """Kernels A and B of this tree and of the parent's, timed in turns
+    """Kernels A, B and C of this tree and of the parent's, timed in turns
     (parent, this, this, parent) on the same inputs: A at the serving
     path's (r 64), the OLMoE path's (r 256, G 16) and a scalar-path shape
-    (r 30), B at the serving and hybrid paths' shapes; the two agree in
-    their bits there."""
+    (r 30), B at the serving and hybrid paths' shapes, C at the Zamba2
+    prefill's through ``ops.ssd_chunk`` (``SSDChunk``) on inputs that take
+    no gradient, as every serving path calls it; the two agree in their
+    bits there."""
     gen = torch.Generator(device=dev).manual_seed(3)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     old_a = parent_scores(parent, dev)
@@ -703,6 +764,17 @@ def against_parent(ops, parent: Path, dev, card) -> None:
         print(f"kernel gather_attention at {path}'s shapes against the parent tree, in turns "
               f"(parent, this, this, parent): {', '.join(f'{t * 1e3:.2f}' for t in turns)} us; "
               f"bit-equal outputs  [{card}]", flush=True)
+    old_c = parent_ssd(parent, dev)
+    args = ssd_inputs(gen, dev, **ZAMBA_SSD)
+    check(torch.equal(old_c(*args), ops.ssd_chunk(*args)),
+          f"kernel C at {ZAMBA}'s shapes differs in its bits from the parent's")
+    turns = [device_ms(functools.partial(fn, *args), flush)
+             for fn in (old_c, ops.ssd_chunk, ops.ssd_chunk, old_c)]
+    print(f"kernel ssd_chunk at {ZAMBA}'s shapes {ZAMBA_SSD} against the parent tree, in turns "
+          f"(parent, this through SSDChunk, this, parent): "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in turns)} us; bit-equal outputs  [{card}]",
+          flush=True)
+    del args
     parent_moe(parent, dev, flush, card)
 
 
@@ -1371,14 +1443,6 @@ def dense_phases(main_path, registry, ecfg, ecfgs, entries, dev, card) -> dict:
     return launches
 
 
-def tree_numel(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(tree_numel(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(tree_numel(v) for v in tree)
-    return tree.numel()
-
-
 def device_report(name: str, run, card: str, t0: float) -> None:
     walls = run["decode_step_wall_seconds"]
     print(f"{name}: {run['n_layers']} blocks, mode {run['mode']}, batch "
@@ -1485,12 +1549,13 @@ def whisper_phase(main_path, registry, ecfg, entries, dev, card) -> dict:
     tokens (the engine's host-gather route), then the same weights through
     the full-cache device path (``kvswap``); returns both runs' launches."""
     from repro_torch.serving.decode import KVSwapServeConfig
+    from repro_torch.utils import tree_count
 
     t0 = time.perf_counter()
     weights = main_path.whisper_weights(registry.get(WHISPER), device=dev,
                                         batch=DEVICE_RUN["batch"])
     cfg, params, enc_out, enc_s = weights
-    n_params = tree_numel(params)
+    n_params = tree_count(params)
     print(f"{WHISPER}: {cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads = {cfg.n_kv_heads} KV heads, head_dim "
           f"{cfg.head_dim}, {n_params / 1e9:.3f} B parameters; encoder over "
@@ -1551,7 +1616,7 @@ def xlstm_phase(main_path, registry, dev, card) -> None:
     toks = torch.cat([torch.as_tensor(main_path.device_prompts(
         cfg.vocab_size, batch=run["batch"], prompt_len=run["prompt_len"], seed=0)),
         torch.as_tensor(out["tokens"])], 1).to(dev)
-    ref = T.forward(params2, cfg2, toks)[:, run["prompt_len"] - 1:-1].cpu()
+    ref = T.forward(params2, cfg2, toks)[0][:, run["prompt_len"] - 1:-1].cpu()
     got = torch.stack(out["logits"], 1)
     err = float((got - ref).abs().max())
     big = max(1.0, float(ref.abs().max()))
@@ -1561,12 +1626,221 @@ def xlstm_phase(main_path, registry, dev, card) -> None:
     check(err <= 2e-4 * big, f"{XLSTM}, 2 blocks: steps differ from the forward by {err:.3g}")
 
 
+def scale_entries(ops, select_groups, dev) -> list[dict]:
+    """The kernel entries of the two paths driven last: kernel A on one
+    rank's whole context at the sequence-sharded decode's shapes (world 1:
+    B 1, H 32, N 524288, r 64, G 4, 500,000 valid tokens) and kernel C at
+    the Zamba2 training forward's (B 2, nc 8), where ``SSDChunk``'s grads in
+    all five inputs are also held to autograd of the plain version (1e-4
+    of max(1, |g|max)) and its backward (the plain version's VJP) is timed
+    beside the forward."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    sp = SEQSHARD_SPEC
+    shape = (sp["b"], sp["h"], sp["r"], sp["n"], sp["group_size"])
+    valid = [SEQSHARD_CASE["length"]] * sp["b"]
+    err = check_scores(ops, select_groups, dev, gen, *shape, valid, SEQSHARD_CASE["n_select"])
+    out = [kernel_entry("lowrank_group_scores", SEQSHARD, err,
+                        time_scores(ops, dev, gen, flush, *shape, valid))]
+    args = [a.requires_grad_() for a in ssd_inputs(gen, dev, **TRAIN_SSD)]
+    cot = torch.randn((*args[0].shape,), generator=gen, device=dev)
+    grads = torch.autograd.grad(ops.ssd_chunk(*args), args, cot)
+    plain = torch.autograd.grad(ops.ssd_chunk_plain(*args), args, cot)
+    torch.cuda.synchronize()
+    g_err = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for g, w in zip(grads, plain))
+    check(all(bool(torch.isfinite(g).all()) for g in grads), "SSDChunk: non-finite grads")
+    check(g_err <= SSD_TOL, f"SSDChunk grads at {TRAIN}'s shapes: err {g_err:.3g} of max(1, "
+                            f"|g|max) > {SSD_TOL}")
+    y = ops.ssd_chunk(*args)
+    bwd_ms = device_ms(lambda: torch.autograd.grad(y, args, cot, retain_graph=True), flush)
+    print(f"kernel ssd_chunk at {TRAIN}'s shapes {TRAIN_SSD}: SSDChunk's grads against autograd "
+          f"of the plain version: largest err {g_err:.3g} of max(1, |g|max); its backward (the "
+          f"plain version's VJP) {bwd_ms * 1e3:.2f} us", flush=True)
+    del grads, plain, y, args
+    with torch.no_grad():
+        err_c = check_ssd(ops, dev, gen, TRAIN_SSD)
+        timed = time_ssd(ops, dev, gen, flush, TRAIN_SSD)
+    out.append(kernel_entry("ssd_chunk", TRAIN, err_c, {**timed, "backward_ms": bwd_ms}))
+    return out
+
+
+def seqshard_phase(dev, card) -> dict:
+    """The sequence-sharded decode attention (``serving/distributed.py``) at
+    the reference's long_500k shape: at world 1 over NCCL in this process
+    and at world 4 over gloo in four spawned processes on this one card,
+    each rank making only its own blocks of the context; each output
+    against the port's ``reference_decode_attn`` on the card with the same
+    number of shards; then Llama-3.1-8B's params at full width, cut to 2
+    layers, distributed over a 1x1 NCCL mesh, ``forward`` on the DTensors
+    against the plain ``forward``.  Returns kernel A's launches at world 1."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh_auto
+    from repro_torch.models import transformer as T
+    from repro_torch.seqshard_path import (SeqShardSpec, kv_blocks, replicated_inputs, run_rank,
+                                           spawn_ranks)
+    from repro_torch.serving.distributed import reference_decode_attn
+    from repro_torch.sharding import distribute_params, param_pspecs
+
+    spec, case = SeqShardSpec(**SEQSHARD_SPEC), SEQSHARD_CASE
+    workdir = ROOT / "build" / "seqshard"
+    workdir.mkdir(parents=True, exist_ok=True)
+    store = workdir / "pg_world1"
+    store.unlink(missing_ok=True)
+    n_blocks = spec.n // spec.block
+    rep = replicated_inputs(spec, dev)
+    k_lr, k, v = kv_blocks(spec, 0, n_blocks, rep["a"])
+    args = (rep["q"], rep["q_lr"], k_lr, k, v, rep["k_new"], rep["v_new"], case["length"])
+    want = {w: reference_decode_attn(*args, group_size=spec.group_size,
+                                     n_select=case["n_select"], n_shards=w) for w in (1, 4)}
+    del k_lr, k, v, args
+    free_device()
+
+    def report(world, results, backend):
+        outs = [r["out"] for r in results]
+        ref = want[world].cpu()
+        err = float((outs[0] - ref).abs().max())
+        big = max(1.0, float(ref.abs().max()))
+        steps = [statistics.median(r["step_ms"]) for r in results]
+        ranks_ms = ", ".join(f"{t:.3f}" for t in steps)
+        score_us = ", ".join(f"{r['score_ms'] * 1e3:.2f}" for r in results)
+        combine_ms = ", ".join(f"{r['combine_ms']:.3f}" for r in results)
+        bound_us = ", ".join(f"{spec.b * r['valid'] * spec.r * 4 / HBM_BYTES_PER_S * 1e6:.2f}"
+                             for r in results)
+        print(f"{SEQSHARD}, world {world} ({backend}): N {spec.n}, length {case['length']}, "
+              f"M {case['n_select']} (a quota of {max(1, case['n_select'] // world)} a shard): "
+              f"max abs diff to reference_decode_attn(n_shards={world}) {err:.3g} (largest |o| "
+              f"{big:.3g}); step median {max(steps):.3f} ms over {SEQSHARD_REPS} calls (the "
+              f"slowest rank's; ranks {ranks_ms}); kernel A alone a shard (one rank at a "
+              f"time) {score_us} us against bounds of {bound_us} us (the shard's valid tokens x "
+              f"r x 4 B over 3.35 TB/s); combine {combine_ms} "
+              f"ms, {results[0]['combine_bytes']} B into the all_reduces a rank; launches "
+              f"{[r['launches'] for r in results]}; selections flipped against the plain "
+              f"scores {sum(len(r['flips']) for r in results)}  [{card}]", flush=True)
+        check(all(torch.equal(o, outs[0]) for o in outs), f"{SEQSHARD} world {world}: ranks "
+              f"end with different outputs")
+        check(bool(torch.isfinite(outs[0]).all()), f"{SEQSHARD} world {world}: non-finite output")
+        check(err <= ATTN_TOL * big, f"{SEQSHARD} world {world}: output differs from the oracle "
+                                     f"by {err:.3g}")
+        check(all(r["launches"] == 1 + SEQSHARD_REPS for r in results),
+              f"{SEQSHARD} world {world}: kernel A launched {[r['launches'] for r in results]} "
+              f"times, expected once a rank a call ({1 + SEQSHARD_REPS})")
+        for rank, r in enumerate(results):
+            for f in r["flips"]:
+                print(f"  flip on rank {rank}, row {f['row']}: kernel only {f['kernel_only']}, "
+                      f"plain only {f['plain_only']}, score gap {f['gap']:.3g} of the row's "
+                      f"score scale", flush=True)
+            check(all(f["gap"] <= SCORE_RTOL for f in r["flips"]),
+                  f"{SEQSHARD} world {world}: a flipped selection beyond kernel A's tolerance")
+
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh_auto((1,), ("data",))
+        [res1] = run_rank(spec, mesh, [case], device=dev, reps=SEQSHARD_REPS)
+        free_device()
+        report(1, [res1], "nccl")
+        t0 = time.perf_counter()
+        res4 = spawn_ranks(spec, [case], world=4, workdir=workdir, backend="gloo",
+                           device="cuda", reps=SEQSHARD_REPS, timeout=600)
+        report(4, [r[0] for r in res4], "gloo, 4 processes sharing this one card: their times "
+               f"are not a cluster's; {time.perf_counter() - t0:.1f} s with start-up")
+
+        cfg = dataclasses.replace(registry.get(LLAMA), n_layers=2)
+        params = registry.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                                      device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(1))
+        with torch.no_grad():
+            ref, _ = T.forward(params, cfg, toks)
+            mesh2 = make_mesh_auto((1, 1), ("data", "model"))
+            dparams = distribute_params(params, mesh2, param_pspecs(params, mesh2))
+            with implicit_replication():
+                got = T.forward(dparams, cfg, toks)[0].full_tensor()
+        err = float((got - ref).abs().max())
+        big = max(1.0, float(ref.abs().max()))
+        print(f"{LLAMA} at full width, 2 layers, params distributed over a 1x1 NCCL mesh: "
+              f"forward on DTensors against the plain forward: max abs logit diff {err:.3g} "
+              f"(largest |logit| {big:.3g}), bit-equal {torch.equal(got, ref)}  [{card}]",
+              flush=True)
+        check(err <= 1e-6 * big, f"forward on DTensor params differs by {err:.3g}")
+        del params, dparams, got, ref
+    finally:
+        dist.destroy_process_group()
+    return {"lowrank_group_scores": res1["launches"]}
+
+
+def train_phase(dev, card) -> dict:
+    """Zamba2-1.2B at full width and depth trained through the port's train
+    step (kernel C in every Mamba2 block's forward, ``SSDChunk``'s plain VJP
+    backward), then the step's variants held to each other at Llama-3.1-8B
+    width cut to 2 layers; returns kernel C's launches in the first run."""
+    from repro_torch.configs import registry
+    from repro_torch.train_path import run_train_checks, run_train_path
+
+    cfg = registry.get(ZAMBA)
+    n_mamba = cfg.blocks.count("mamba2")
+    t0 = time.perf_counter()
+    run = run_train_path(cfg, device=dev, **TRAIN_RUN)
+    walls = run["step_wall_seconds"]
+    losses, remat = run["losses"], run["remat_losses"]
+    med = statistics.median(walls)
+    print(f"{TRAIN}: {cfg.n_layers} blocks ({n_mamba} Mamba2, {cfg.blocks.count('shared_attn')} "
+          f"shared attention), {run['n_params'] / 1e9:.3f} B parameters, fp32, B "
+          f"{TRAIN_RUN['batch']} x S {TRAIN_RUN['seq_len']}: {TRAIN_RUN['fixed_steps']} steps on "
+          f"one batch, losses {', '.join(f'{x:.4f}' for x in losses)}; step median "
+          f"{med * 1e3:.1f} ms ({', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
+          f"{run['tokens'] / med:.0f} tokens/s, peak device memory "
+          f"{run['peak_memory_bytes'] / 2**30:.2f} GiB; one forward {run['forward_seconds'] * 1e3:.1f}"
+          f" ms, its backward {run['backward_seconds'] * 1e3:.1f} ms; train_loop with remat, "
+          f"{TRAIN_RUN['loop_steps']} steps: losses {', '.join(f'{x:.4f}' for x in remat)}, "
+          f"{run['remat_seconds']:.2f} s; kernel C launches {run['launches']} and "
+          f"{run['remat_launches']} (steps x {n_mamba} Mamba2 blocks x (1 + remat)); total "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    check(all(math.isfinite(x) for x in losses + remat), f"{TRAIN}: a loss is not finite")
+    check(losses[-1] < losses[0], f"{TRAIN}: the loss did not fall over one batch ({losses})")
+    # launches = steps x Mamba2 blocks x (1 + remat): one a block a forward,
+    # and again in each block's recompute during a checkpointed backward
+    check(run["launches"] == TRAIN_RUN["fixed_steps"] * n_mamba,
+          f"{TRAIN}: kernel C launched {run['launches']} times, expected "
+          f"{TRAIN_RUN['fixed_steps']} x {n_mamba}")
+    check(run["remat_launches"] == TRAIN_RUN["loop_steps"] * n_mamba * 2,
+          f"{TRAIN}: kernel C launched {run['remat_launches']} times with remat, expected "
+          f"{TRAIN_RUN['loop_steps']} x {n_mamba} x 2")
+    free_device()
+
+    cfg2 = dataclasses.replace(registry.get(LLAMA), n_layers=2)
+    t0 = time.perf_counter()
+    chk = run_train_checks(cfg2, device=dev, batch=2, seq_len=512, workdir=ROOT / "build")
+    (l1, l2), (r0, r1) = chk["accum_loss"], chk["remat_loss"]
+    print(f"{LLAMA} at full width, 2 layers, B 2 x S 512: accum_steps 2 against 1: losses {l1:.6f}"
+          f" / {l2:.6f}, params after the step differ by {chk['accum_param_diff']:.3g}, first "
+          f"moments by {chk['accum_mu_diff']:.3g} (largest {chk['mu_max']:.3g}); remat against "
+          f"none: losses {r0:.6f} / {r1:.6f}, grads differ by {chk['remat_grad_diff']:.3g} "
+          f"(largest |g| {chk['grad_max']:.3g}), bit-equal {chk['remat_bit_equal']}; checkpoint "
+          f"round trip of {chk['checkpoint_bytes'] / 2**30:.2f} GiB in "
+          f"{chk['checkpoint_seconds']:.1f} s, bit-equal {chk['checkpoint_bit_equal']}; total "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    check(abs(l1 - l2) <= 1e-5 * abs(l1), f"accum_steps 2 changes the loss: {l1} against {l2}")
+    check(chk["accum_param_diff"] <= 2e-6, f"accum_steps 2 changes the params by "
+                                           f"{chk['accum_param_diff']:.3g}")
+    check(chk["accum_mu_diff"] <= 1e-5 * chk["mu_max"], "accum_steps 2 changes the grads by "
+                                                         f"{chk['accum_mu_diff']:.3g}")
+    check(abs(r0 - r1) <= 1e-6 * abs(r0), f"remat changes the loss: {r0} against {r1}")
+    check(chk["remat_grad_diff"] <= 1e-6 * max(1.0, chk["grad_max"]),
+          f"remat changes the grads by {chk['remat_grad_diff']:.3g}")
+    check(chk["checkpoint_bit_equal"], "save_pytree -> load_pytree changed bits")
+    return {"ssd_chunk": run["launches"]}
+
+
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of another tree: its kernels A and B and its MoE "
+                    help="a checkout of another tree: its kernels A, B and C and its MoE "
                          "layer are timed in turns with this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1614,6 +1888,7 @@ def main() -> None:
                                                     **dict.fromkeys((STABLELM, *DENSE_2L), ecfg)},
                               ops, select_groups, dev)
     entries += device_entries(main_path, registry, ecfg, ops, select_groups, dev)
+    entries += scale_entries(ops, select_groups, dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     tiny = torch.empty(1, device=dev)
     print(f"timing floor: one launch of a one-element fill {device_ms(tiny.zero_, flush) * 1e3:.2f}"
@@ -1690,6 +1965,10 @@ def main() -> None:
     path_launches.update(whisper_phase(main_path, registry, ecfg, entries, dev, card))
     free_device()
     xlstm_phase(main_path, registry, dev, card)
+    free_device()
+    path_launches[SEQSHARD] = seqshard_phase(dev, card)
+    free_device()
+    path_launches[TRAIN] = train_phase(dev, card)
     free_device()
     for e in entries:
         e["launches"] = path_launches[e["path"]][e["name"]]

@@ -245,12 +245,8 @@ def _ssd_shapes(xh, bm, cm, dt, cum) -> tuple[int, ...]:
     return b, nc, q, h, p, n
 
 
-def ssd_chunk(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
-              cum: torch.Tensor) -> torch.Tensor:
-    """Intra-chunk SSD: ``xh [B,nc,Q,H,P]``, ``bm/cm [B,nc,Q,N]``, ``dt/cum
-    [B,nc,Q,H]`` (``cum`` the in-chunk cumulative log-decay), all fp32 →
-    ``[B,nc,Q,H,P]`` fp32.  The kernel takes ``Q <= 128``, ``P`` a power of
-    two from 8 to 64 and ``N <= 128``."""
+def _ssd_chunk_forward(xh, bm, cm, dt, cum) -> torch.Tensor:
+    """Kernel C on a CUDA tensor, the plain version on a CPU tensor."""
     b, nc, q, h, p, n = _ssd_shapes(xh, bm, cm, dt, cum)
     if xh.device.type == "cpu":
         return ssd_chunk_plain(xh, bm, cm, dt, cum)
@@ -267,6 +263,39 @@ def ssd_chunk(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Te
             out.data_ptr(), b * nc, q, h, p, n, torch.cuda.current_stream(dev).cuda_stream)
     ssd_chunk.launches += 1
     return out
+
+
+class SSDChunk(torch.autograd.Function):
+    """Kernel C with a gradient.  The forward is kernel C on a CUDA tensor
+    (the plain version on a CPU tensor); the backward is the VJP of
+    :func:`ssd_chunk_plain`, recomputed from the saved inputs, for all five
+    of them.  The JAX package has no backward kernel for its Pallas SSD term
+    (it trains through plain ``jnp``), so neither has the port.  Inputs are
+    saved only when one of them needs a gradient: under ``no_grad`` or
+    ``inference_mode`` the call is the bare forward."""
+
+    @staticmethod
+    def forward(ctx, xh, bm, cm, dt, cum):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(xh, bm, cm, dt, cum)
+        return _ssd_chunk_forward(xh, bm, cm, dt, cum)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = ssd_chunk_plain(*inputs)
+        return torch.autograd.grad(y, inputs, grad_out)
+
+
+def ssd_chunk(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
+              cum: torch.Tensor) -> torch.Tensor:
+    """Intra-chunk SSD: ``xh [B,nc,Q,H,P]``, ``bm/cm [B,nc,Q,N]``, ``dt/cum
+    [B,nc,Q,H]`` (``cum`` the in-chunk cumulative log-decay), all fp32 →
+    ``[B,nc,Q,H,P]`` fp32, differentiable in every input (:class:`SSDChunk`).
+    The kernel takes ``Q <= 128``, ``P`` a power of two from 8 to 64 and
+    ``N <= 128``; ``ssd_chunk.launches`` counts its forward launches."""
+    return SSDChunk.apply(xh, bm, cm, dt, cum)
 
 
 ssd_chunk.launches = 0

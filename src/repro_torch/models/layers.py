@@ -249,6 +249,26 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+# Optional sharding of the MoE dispatch, set by a launcher that runs the model
+# on DTensor params: ``{"buf": P(dp, "model", None, None), "y": P(dp, None,
+# None)}`` pins the per-row expert buffer to (batch → data, expert → model),
+# so that dispatch is a token all-to-all.  Unset, or on plain tensors, the
+# hook does nothing.
+_MOE_PSPECS: dict | None = None
+
+
+def set_moe_pspecs(specs: dict | None) -> None:
+    global _MOE_PSPECS
+    _MOE_PSPECS = specs
+
+
+def _moe_constrain(name: str, x: torch.Tensor) -> torch.Tensor:
+    if _MOE_PSPECS is None or name not in _MOE_PSPECS:
+        return x
+    from repro_torch.sharding.partition import constrain
+    return constrain(x, _MOE_PSPECS[name])
+
+
 def init_moe(*, generator: torch.Generator, device, d_model: int, d_ff: int,
              n_experts: int, dtype=torch.float32, shared_d_ff: int = 0) -> dict:
     """MoE weights in the reference layout, drawn from ``generator``: the
@@ -314,17 +334,17 @@ def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, t)
     buf = x.new_zeros((b, e, cap + 1, d))
     buf.index_put_((bidx, expert_of, pos_safe), x[bidx, token_of])
-    buf = buf[:, :, :cap]
+    buf = _moe_constrain("buf", buf[:, :, :cap])          # [B(data), E(model), C, D]
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", buf, p["w_up"])
-    out = torch.einsum("becf,efd->becd", h, p["w_down"])                # [B,E,C,D]
+    out = _moe_constrain("buf", torch.einsum("becf,efd->becd", h, p["w_down"]))  # [B,E,C,D]
 
     y_tok = out[bidx, expert_of, pos_safe.clamp(0, cap - 1)]            # [B,T,D]
     y_tok = y_tok * (gates * keep).to(y_tok.dtype)[..., None]
     # each token's k assignments are adjacent: sum them (the reference's
     # scatter-add onto the token, in a fixed order)
-    y = y_tok.reshape(b, s, top_k, d).sum(dim=2)
+    y = _moe_constrain("y", y_tok.reshape(b, s, top_k, d).sum(dim=2))
     if "shared" in p:
         y = y + swiglu(p["shared"], x)
 

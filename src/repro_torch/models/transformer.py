@@ -5,7 +5,8 @@ attention-free xLSTM stack of mLSTM and sLSTM blocks.
 :class:`ModelConfig` is the reference's config record, copied; the params
 are a plain dict of tensors with the reference ``init_params`` layout (so
 :mod:`repro_torch.bridge` can load the reference's weights one to one),
-``forward`` is the teacher-forced full-sequence forward, and
+``forward`` is the teacher-forced full-sequence forward (logits and the
+MoE load-balance loss, as the reference returns them), and
 :class:`TransformerAdapter` is the per-block prefill/decode interface the
 KVSwap engine consumes.  It builds every block kind of the reference:
 ``"attn"``, ``"moe_attn"``, ``"shared_attn"``, ``"mamba2"``, ``"mlstm"`` and
@@ -18,12 +19,32 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
 ATTN_KINDS = ("attn", "moe_attn", "shared_attn")
+
+# Optional between-block activation spec (sequence parallelism), set by a
+# launcher that runs the model on DTensor params: an attention block's output
+# is redistributed to it.  Unset, or on a plain tensor, it does nothing.
+_ACT_PSPEC = None
+
+
+def set_activation_pspec(spec) -> None:
+    """``spec``: a :class:`repro_torch.sharding.P` over the mesh the params
+    live on, or ``None`` to unset."""
+    global _ACT_PSPEC
+    _ACT_PSPEC = spec
+
+
+def _act_constrain(x: torch.Tensor) -> torch.Tensor:
+    if _ACT_PSPEC is None or x.dim() != 3:
+        return x
+    from repro_torch.sharding.partition import constrain
+    return constrain(x, _ACT_PSPEC)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,7 +237,7 @@ def block_forward(params, cfg: ModelConfig, layer: int, x: torch.Tensor,
         o = L.causal_attention(q, k, v)
         x = x + o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim) @ attn_p["wo"]
         y, aux = _ffn(params, cfg, layer, mlp_holder, L.rmsnorm(mlp_holder["mlp_norm"], x))
-        return x + y, aux, ((k, v) if return_kv else None)
+        return _act_constrain(x + y), aux, ((k, v) if return_kv else None)
     blk = params["blocks"][layer]
     h = L.rmsnorm(blk["norm"], x)
     if kind == "mamba2":
@@ -228,18 +249,30 @@ def block_forward(params, cfg: ModelConfig, layer: int, x: torch.Tensor,
     return x + y, 0.0, st
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
-    """Teacher-forced forward: ``tokens [B, S]`` → logits ``[B, S, V]`` (the
-    reference also returns the summed MoE load-balance loss, which
-    :func:`block_forward` returns block by block)."""
-    x = params["embed"][tokens]
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor | None, *,
+            embeddings: torch.Tensor | None = None, remat: bool = False):
+    """Teacher-forced forward: ``tokens [B, S]`` (or ``embeddings [B, S,
+    D]`` in their place) → ``(logits [B, S, V], aux)``, ``aux`` the blocks'
+    MoE load-balance losses summed (0 without MoE).
+
+    ``remat=True`` checkpoints each block (``torch.utils.checkpoint``,
+    non-reentrant): its activations are recomputed in the backward pass,
+    so the live activations are one block's, not every block's.
+    """
+    x = params["embed"][tokens] if embeddings is None else embeddings
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].repeat(b, 1)
+    aux_total = 0.0
     for i in range(len(cfg.blocks)):
-        x, _, _ = block_forward(params, cfg, i, x, positions)
+        if remat:
+            x, aux, _ = checkpoint(block_forward, params, cfg, i, x, positions,
+                                   use_reentrant=False)
+        else:
+            x, aux, _ = block_forward(params, cfg, i, x, positions)
+        aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return x @ head, aux_total
 
 
 # --------------------------------------------------------------------------
@@ -314,7 +347,7 @@ class TransformerAdapter:
         o = L.chunked_causal_attention(q, k_all, v_all, k_prefix.shape[1])
         x = x + o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim) @ attn_p["wo"]
         y, _ = _ffn(params, cfg, layer, mlp_holder, L.rmsnorm(mlp_holder["mlp_norm"], x))
-        return x + y, k, v
+        return _act_constrain(x + y), k, v
 
     # -- decode ------------------------------------------------------------
     def gather_context(self, dev_k, dev_v, slots, tail_k, tail_v, tail_fill):

@@ -132,9 +132,9 @@ def cross_and_mlp(blk, cfg: WhisperConfig, x: torch.Tensor, ck: torch.Tensor,
 
 
 def decoder_forward(params, cfg: WhisperConfig, tokens: torch.Tensor,
-                    enc_out: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decoder: ``tokens [B, S]`` → logits ``[B, S, V]`` (the
-    reference also returns ``None`` beside them)."""
+                    enc_out: torch.Tensor) -> tuple[torch.Tensor, None]:
+    """Teacher-forced decoder: ``tokens [B, S]`` → ``(logits [B, S, V],
+    None)``, as the reference returns it (no auxiliary loss)."""
     b, s = tokens.shape
     x = params["embed"][tokens] + sinusoid_positions(
         torch.arange(s, device=tokens.device), cfg.d_model)[None]
@@ -143,7 +143,7 @@ def decoder_forward(params, cfg: WhisperConfig, tokens: torch.Tensor,
         o = L.causal_attention(q, k, v)
         x = x + o.reshape(b, s, -1) @ blk["attn"]["wo"]
         x = cross_and_mlp(blk, cfg, x, ck, cv)
-    return L.layernorm(params["final_norm"], x) @ params["embed"].T
+    return L.layernorm(params["final_norm"], x) @ params["embed"].T, None
 
 
 class WhisperAdapter:

@@ -16,7 +16,9 @@ plain version, on the tensor cores with each operand split into a TF32 and
 a bf16-rounded remainder (each product term held to ~2^-18 of its size;
 ``tests/test_torch_ssd_split.py`` models the scheme) and with a fast
 ``exp``: held to 1e-4 of ``max(1, |y|max)``, ten times inside the JAX
-package's own bound for its Pallas kernel (1e-3 absolute).
+package's own bound for its Pallas kernel (1e-3 absolute).  Its gradient
+(``ops.SSDChunk``, whose backward is the plain version's VJP) is held to the
+same bound against autograd of the plain version, in every SSD case.
 """
 
 import numpy as np
@@ -236,6 +238,17 @@ class TestCudaKernels:
             assert not bool(got[:, -1, shape["q"] - shape["pad"]:].any())
         scale = max(1.0, float(want.abs().max()))
         assert float((got - want).abs().max()) <= SSD_TOL * scale
+        # its gradient (``SSDChunk``: kernel C forward, the plain VJP
+        # backward) in all five inputs, against autograd of the plain version
+        req = [a.clone().requires_grad_() for a in args]
+        cot = torch.randn(want.shape, device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(7))
+        before = ops.ssd_chunk.launches
+        grads = torch.autograd.grad(ops.ssd_chunk(*req), req, cot)
+        assert ops.ssd_chunk.launches == before + 1          # the forward's launch only
+        for g, w in zip(grads, torch.autograd.grad(ops.ssd_chunk_plain(*req), req, cot)):
+            assert bool(torch.isfinite(g).all())
+            assert float((g - w).abs().max()) <= SSD_TOL * max(1.0, float(w.abs().max()))
 
     def test_ssd_chunk_is_deterministic(self, cuda_device):
         """A fixed order of accumulation and no atomics: repeated calls at

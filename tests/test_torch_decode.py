@@ -87,7 +87,7 @@ def test_serve_step_matches_teacher_forcing(arch):
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (b, s + 4)).astype(np.int32)
     jenc, tenc = encoder_out(cfg, jp, tcfg, tp, b)
     tt = torch.from_numpy(toks)
-    ref = (W.decoder_forward(tp, tcfg, tt, tenc) if jenc is not None else T.forward(tp, tcfg, tt))
+    ref = (W.decoder_forward(tp, tcfg, tt, tenc) if jenc is not None else T.forward(tp, tcfg, tt))[0]
     jc, tc = JD.init_cache(cfg, b, 32), D.init_cache(tcfg, b, 32, device="cpu")
     jl, jc = JD.prefill(jp, cfg, jnp.asarray(toks[:, :s]), jc, enc_out=jenc)
     tl, tc = D.prefill(tp, tcfg, tt[:, :s], tc, enc_out=tenc)

@@ -178,8 +178,10 @@ class TestAdapter:
     def test_forward_matches_reference(self, pair):
         _, cfg, _, jp, _, tp = pair
         tok = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 21))
-        want, _ = jforward(jp, cfg, jnp.asarray(tok))
-        close(forward(tp, port_cfg(cfg), torch.from_numpy(tok)), want)
+        want, want_aux = jforward(jp, cfg, jnp.asarray(tok))
+        got, aux = forward(tp, port_cfg(cfg), torch.from_numpy(tok))
+        close(got, want)
+        assert float(aux) == float(want_aux) == 0.0          # no MoE block
 
     def test_prefill_then_steps_match_teacher_forced_forward(self, pair):
         """Chunked prefill of 16 tokens, then 4 single steps over the full
@@ -187,7 +189,7 @@ class TestAdapter:
         ``tests/test_archs.py::test_ssm_prefill_decode_consistency``)."""
         _, cfg, _, _, ta, tp = pair
         tok = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 20)))
-        want = forward(tp, port_cfg(cfg), tok)
+        want = forward(tp, port_cfg(cfg), tok)[0]
         x = ta.embed(tp, tok[:, :16])
         pos = torch.arange(16)[None].repeat(2, 1)
         states, kv = {}, {}
@@ -265,7 +267,7 @@ def full_kv_generate(tp, cfg, prompt, n_new):
     toks = torch.from_numpy(np.asarray(prompt))
     out = []
     for _ in range(n_new):
-        nxt = forward(tp, cfg, toks)[:, -1].argmax(-1)
+        nxt = forward(tp, cfg, toks)[0][:, -1].argmax(-1)
         out.append(nxt.numpy())
         toks = torch.cat([toks, nxt[:, None]], 1)
     return np.stack(out, 1)

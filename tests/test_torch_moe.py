@@ -42,8 +42,7 @@ from repro_torch.core.engine import EngineConfig, KVSwapEngine
 from repro_torch.launch import serve
 from repro_torch.main_path import probe_fidelity, run_main_path, tuned_engine_config
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (ModelConfig, TransformerAdapter, block_forward,
-                                           forward, init_params)
+from repro_torch.models.transformer import ModelConfig, TransformerAdapter, forward, init_params
 from repro_torch.serving import ServeSession
 from test_torch_engine import record
 
@@ -142,18 +141,11 @@ def test_forward_matches_reference(pair):
     cfg, _, jp, _, tp, _ = pair
     tok = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 23))
     want, want_aux = jforward(jp, cfg, jnp.asarray(tok))
-    got = forward(tp, port_cfg(cfg), torch.from_numpy(tok))
+    got, got_aux = forward(tp, port_cfg(cfg), torch.from_numpy(tok))
     close(got, want)
-    # the reference's aux: the blocks' load-balance losses, summed
-    x = tp["embed"][torch.from_numpy(tok)]
-    pos = torch.arange(tok.shape[1])[None].repeat(tok.shape[0], 1)
-    got_aux = 0.0
-    for i in range(len(cfg.blocks)):
-        x, aux, _ = block_forward(tp, port_cfg(cfg), i, x, pos)
-        got_aux = got_aux + aux
+    # the blocks' load-balance losses, summed
+    assert float(want_aux) > 0
     np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=RTOL)
-    head = tp["embed"].T if cfg.tie_embeddings else tp["lm_head"]
-    assert torch.equal(L.rmsnorm(tp["final_norm"], x) @ head, got)
 
 
 def test_adapter_blocks_match_reference(pair):

@@ -149,8 +149,10 @@ def test_encode_and_cross_kv_match_reference(smoke):
 def test_decoder_forward_matches_reference(smoke):
     cfg, jp, tcfg, tp, _, jenc, tenc = smoke
     toks = np.random.default_rng(13).integers(0, cfg.vocab_size, (2, 17))
-    want, _ = JW.decoder_forward(jp, cfg, jnp.asarray(toks), jenc)
-    close(W.decoder_forward(tp, tcfg, torch.from_numpy(toks), tenc), want, 1e-4)
+    want, want_aux = JW.decoder_forward(jp, cfg, jnp.asarray(toks), jenc)
+    got, aux = W.decoder_forward(tp, tcfg, torch.from_numpy(toks), tenc)
+    close(got, want, 1e-4)
+    assert aux is None and want_aux is None
 
 
 def test_adapter_blocks_match_reference(smoke):

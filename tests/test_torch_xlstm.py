@@ -134,9 +134,10 @@ def test_init_params_layout_matches_reference(smoke):
 def test_forward_matches_reference(smoke):
     cfg, jp, tcfg, tp = smoke
     toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 15))
-    want, _ = jforward(jp, cfg, jnp.asarray(toks))
-    np.testing.assert_allclose(forward(tp, tcfg, torch.from_numpy(toks)).numpy(),
-                               np.asarray(want), rtol=1e-4, atol=1e-5)
+    want, want_aux = jforward(jp, cfg, jnp.asarray(toks))
+    got, aux = forward(tp, tcfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    assert float(aux) == float(want_aux) == 0.0              # no MoE block
 
 
 def test_adapter_state_blocks_match_reference(smoke):
@@ -172,7 +173,7 @@ def test_ssm_prefill_decode_consistency(arch):
     toks = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 20)))
     cache = D.init_cache(cfg, 2, 32, device="cpu")
     logits, cache = D.prefill(params, cfg, toks[:, :16], cache)
-    ref = forward(params, cfg, toks)
+    ref = forward(params, cfg, toks)[0]
     np.testing.assert_allclose(logits.numpy(), ref[:, 15].numpy(), rtol=0, atol=2e-4)
     for t in range(4):
         logits, cache = D.serve_step(params, cfg, toks[:, 16 + t:17 + t], cache)
