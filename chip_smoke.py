@@ -166,7 +166,24 @@
    within 2e-6), ``remat`` against none (loss and grads within 1e-6,
    bit-equality printed), and a ``save_pytree`` / ``load_pytree`` round
    trip, bit-equal;
-17. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
+17. runs the dry run (``repro_torch.launch.dryrun``) on this machine's
+   torch: ``run_one`` over the fake 256-rank (16x16) world for
+   Llama-3.1-8B and OLMoE-1B-7B at ``train_4k`` and ``decode_32k``,
+   Zamba2-1.2B, Whisper-large-v3 and xLSTM-1.3B at ``decode_32k``, and
+   Llama at ``long_500k`` over the 512-rank (2x16x16) one, in three child
+   processes at once (the fake default group never meets this process's
+   NCCL groups); every combination must be ok, and each prints its FLOPs,
+   bytes, collectives and memory.  Then the dry run of Llama-3.1-8B's
+   device-path step at a world of one (fp32, B 4, ``max_len`` 4096, 2048
+   tokens held, ``KVSwapServeConfig(4, 100, 64)``) against one real
+   ``serve_step`` at that shape on the card (kernel B 32 times): the
+   argument bytes must equal the real params', adapters', cache's and
+   tokens' bytes, the FLOPs ``FlopCounterMode``'s over the real step plus
+   kernel B's launches times its plain version's FLOPs, exactly, and the
+   step's peak memory above its arguments, plus the plain version's peak
+   over kernel B's at the step's shape, must lie within 4 MiB of the dry
+   run's ``temp_bytes``;
+18. prints the ``{"kernels": [...]}`` line, one entry per kernel and main
    path that runs it (``path``): its time, bound, plain and library times
    at that path's shapes, and ``launches`` in that path's main run, counted
    from 0 just before it (every entry's above 0); then, last, the
@@ -247,6 +264,27 @@ SEQSHARD_REPS = 20                               # timed calls after the checked
 TRAIN = "zamba2-1.2b-train"
 TRAIN_RUN = dict(batch=2, seq_len=1024, fixed_steps=8, loop_steps=4, lr=1e-3, warmup=2)
 TRAIN_SSD = dict(b=2, nc=8, q=128, h=64, p=64, n=64)   # kernel C in its forward
+# the dry run (launch/dryrun.py) on this machine's torch: run_one for these
+# (arch, shape, multi-pod) combinations, each list in a child process of its
+# own, the three at once (the fake default group of a child never meets the
+# NCCL groups of this process); every one must be ok
+DRYRUN_CHILDREN = ([(LLAMA, "train_4k", False), (LLAMA, "decode_32k", False),
+                    (LLAMA, "long_500k", True)],
+                   [(OLMOE, "train_4k", False), (OLMOE, "decode_32k", False),
+                    (ZAMBA, "decode_32k", False)],
+                   [(WHISPER, "decode_32k", False), (XLSTM, "decode_32k", False)])
+DRYRUN_TIMEOUT = 300
+# the dry run held against the card: Llama-3.1-8B's device-path step (B 4,
+# max_len 4096, KVSwapServeConfig(4, 100, 64), fp32, 32 layers; PERF.md §4)
+# at a cache holding 2048 tokens, counted at a world of one and run for real
+DRYRUN_CHECK = "llama3-8b-dryrun-check"
+DRYRUN_STEP = dict(batch=4, max_len=4096, length=2048)
+# the real step's peak device memory above what was allocated before it,
+# plus the plain version's peak over kernel B's at the step's shape (the dry
+# run's shards took the plain version, whose einsums copy K and V), must lie
+# within this many bytes of the dry run's temp_bytes: allocator rounding
+# (512 B a block); the cuBLAS workspace is allocated by a warm-up step first
+DRYRUN_BAND = 4 << 20
 # each kernel's source and the TPU kernel it replaces
 SOURCES = {"lowrank_group_scores": ("lowrank_score.cu", "src/repro/kernels/lowrank_score.py:23"),
            "gather_attention": ("gather_attention.cu", "src/repro/kernels/gather_attention.py:28"),
@@ -601,7 +639,8 @@ def device_entries(main_path, registry, ecfg, ops, select_groups, dev) -> list[d
                        h=w.n_heads, hk=w.n_kv_heads, d=w.head_dim, slots=DEVICE_RUN["batch"],
                        max_new=DEVICE_RUN["max_new"])
     for path, arch, s in ((LLAMA_DEV, LLAMA, m * g + 1), (LLAMA_ROLL, LLAMA, m * g + g + 1),
-                          (ZAMBA_DEV, ZAMBA, m * g + 1), (WHISPER_DEV, WHISPER, m * g + 1)):
+                          (ZAMBA_DEV, ZAMBA, m * g + 1), (WHISPER_DEV, WHISPER, m * g + 1),
+                          (DRYRUN_CHECK, LLAMA, m * g + 1)):
         cfg = registry.get(arch)
         out.append(attention_entry(ops, dev, gen, flush, path, (
             DEVICE_RUN["batch"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, s)))
@@ -1835,6 +1874,167 @@ def train_phase(dev, card) -> dict:
     return {"ssd_chunk": run["launches"]}
 
 
+def dryrun_child(spec: str, out: str) -> None:
+    """One child of :func:`dryrun_phase`: ``run_one`` for each combination
+    of ``spec`` (JSON: ``{"combos": [[arch, shape, multi_pod], ...],
+    "one_rank": bool}``), and with ``one_rank`` the dry run of the card
+    check's step at a world of one; the results as JSON into ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.serving.decode import KVSwapServeConfig
+
+    spec = json.loads(spec)
+    results = []
+    for arch, shape, multi_pod in spec["combos"]:
+        t0 = time.perf_counter()
+        res = DR.run_one(arch, shape, multi_pod=multi_pod)
+        results.append({**dataclasses.asdict(res), "wall_s": time.perf_counter() - t0})
+    one = None
+    if spec["one_rank"]:
+        one = DR.decode_one_rank(registry.get(LLAMA), DRYRUN_STEP["batch"],
+                                 DRYRUN_STEP["max_len"], DRYRUN_STEP["length"],
+                                 serve=KVSwapServeConfig(*DEVICE_KVSWAP), dtype=torch.float32)
+    Path(out).write_text(json.dumps({"results": results, "one_rank": one}))
+
+
+def dryrun_phase(dev, card) -> dict:
+    """(a) The dry run on this machine's torch: ``run_one`` for
+    :data:`DRYRUN_CHILDREN` in child processes, every combination ok.  (b)
+    The dry run of Llama-3.1-8B's device-path step at a world of one,
+    fp32, against one real ``serve_step`` at that shape on the card: the
+    argument bytes equal the real params', adapters', cache's and tokens'
+    bytes; the FLOPs equal ``FlopCounterMode``'s over the real step plus
+    kernel B's launches times its plain version's FLOPs (a ``ctypes``
+    launch is invisible to dispatch; the dry run's CPU shards took the
+    plain version); the step's peak memory above its arguments, plus the
+    plain version's peak over kernel B's at the step's shape (both measured
+    here), lies within :data:`DRYRUN_BAND` of the dry run's ``temp_bytes``.
+    Returns kernel B's launches in the real step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.serving import decode as D
+    from repro_torch.utils.treeops import tree_leaves
+
+    workdir = ROOT / "build" / "dryrun"
+    workdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs, outs = [], []
+    try:
+        for i, combos in enumerate(DRYRUN_CHILDREN):
+            outs.append(workdir / f"child{i}.json")
+            outs[-1].unlink(missing_ok=True)
+            spec = json.dumps({"combos": combos, "one_rank": i == len(DRYRUN_CHILDREN) - 1})
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dryrun-child", spec,
+                 "--out", str(outs[-1])], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + DRYRUN_TIMEOUT
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"a dry-run child exited {p.returncode}:\n{log[-3000:]}")
+    got = [json.loads(o.read_text()) for o in outs]
+    results = [r for g in got for r in g["results"]]
+    for r in results:
+        m = r["memory"]
+        print(f"dry run {r['arch']} x {r['shape']} x {r['mesh']} kvswap={r['kvswap']}: ok "
+              f"{r['ok']}, traced in {r['lower_s']:.1f} s ({r['wall_s']:.1f} s with set-up), "
+              f"flops {r['flops']:.4e}, bytes {r['bytes_accessed']:.4e}, collectives "
+              f"{r['collective_bytes']} B ({r['collectives'].get('_counts')}), argument "
+              f"{m.get('argument_bytes')} B, output {m.get('output_bytes')} B, temp "
+              f"{m.get('temp_bytes')} B; {r['error'][:300]}  [CPU, torch {torch.__version__}]",
+              flush=True)
+        check(r["ok"], f"dry run {r['arch']} x {r['shape']} x {r['mesh']} failed: {r['error']}")
+    print(f"dry run: {len(results)} combinations in {len(procs)} child processes, "
+          f"{wall:.1f} s of wall", flush=True)
+
+    one = got[-1]["one_rank"]
+    cfg = registry.get(LLAMA)
+    scfg = D.KVSwapServeConfig(*DEVICE_KVSWAP)
+    b, max_len, length = DRYRUN_STEP["batch"], DRYRUN_STEP["max_len"], DRYRUN_STEP["length"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        params = D.attach_kvswap_adapters(registry.init_params(cfg, generator=gen, device=dev),
+                                          cfg, scfg.rank, generator=gen)
+        cache = D.init_cache(cfg, b, max_len, kvswap=scfg, device=dev)
+        for ent in cache["layers"]:
+            for t in ent.values():
+                t.normal_(generator=gen)
+        toks = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32, device=dev,
+                             generator=gen)
+        real_args = sum(t.numel() * t.element_size() for t in tree_leaves((params, toks, cache))
+                        if isinstance(t, torch.Tensor))
+
+        def step():
+            cache["length"] = length
+            return D.serve_step(params, cfg, toks, cache, kvswap=scfg)[0]
+
+        step()                                   # warm-up: cuBLAS workspace, kernel B's buffers
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.gather_attention.launches = 0
+        logits = step()
+        torch.cuda.synchronize()
+        launches = ops.gather_attention.launches
+        temp = torch.cuda.max_memory_allocated() - base
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        with FlopCounterMode(display=False) as fc:
+            step()
+        real_flops = fc.get_total_flops()
+        hk, d, h = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+        s = scfg.n_select * scfg.group_size + 1
+        attn_args = (torch.zeros((b, h, d), device=dev), torch.zeros((b, s, hk, d), device=dev),
+                     torch.zeros((b, s, hk, d), device=dev),
+                     torch.ones((b, s), dtype=torch.bool, device=dev))
+        with FlopCounterMode(display=False) as fp:
+            ops.gather_attention_plain(*attn_args)
+        plain_flops = fp.get_total_flops()
+
+        def call_peak(fn) -> int:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn(*attn_args)
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated() - base
+
+        plain_peak, kernel_peak = call_peak(ops.gather_attention_plain), \
+            call_peak(ops.gather_attention)
+        del attn_args
+    del params, cache
+    want_flops = real_flops + launches * plain_flops
+    want_temp = temp + plain_peak - kernel_peak
+    pm = one["memory"]
+    print(f"{DRYRUN_CHECK}: the dry run at a world of one (CPU fake tensors) against one real "
+          f"serve_step on the card, {LLAMA} fp32, 32 layers, B {b}, max_len {max_len}, "
+          f"{length} tokens held, KVSwap G {scfg.group_size} M {scfg.n_select} r {scfg.rank}: "
+          f"argument bytes {pm['argument_bytes']} predicted, {real_args} real; FLOPs "
+          f"{one['flops']} predicted, {real_flops} counted on the card + {launches} launches of "
+          f"kernel B x {plain_flops} (its plain version at S {s}) = {want_flops}; peak memory "
+          f"above the arguments {temp} B measured + the plain version's peak {plain_peak} B "
+          f"- kernel B's {kernel_peak} B at S {s} = {want_temp} B, {pm['temp_bytes']} B "
+          f"predicted (band {DRYRUN_BAND} B), logits finite {finite}  [{card}]", flush=True)
+    check(finite, f"{DRYRUN_CHECK}: non-finite logits")
+    check(launches == cfg.n_layers, f"{DRYRUN_CHECK}: kernel B launched {launches} times, "
+                                    f"expected {cfg.n_layers}")
+    check(pm["argument_bytes"] == real_args, f"{DRYRUN_CHECK}: argument bytes "
+                                             f"{pm['argument_bytes']} != {real_args}")
+    check(one["flops"] == want_flops, f"{DRYRUN_CHECK}: FLOPs {one['flops']} != {want_flops}")
+    check(abs(want_temp - pm["temp_bytes"]) <= DRYRUN_BAND,
+          f"{DRYRUN_CHECK}: peak {want_temp} B outside {pm['temp_bytes']} +- {DRYRUN_BAND} B")
+    return {"gather_attention": launches}
+
+
 def main() -> None:
     import argparse
 
@@ -1842,7 +2042,12 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of another tree: its kernels A, B and C and its MoE "
                          "layer are timed in turns with this tree's")
+    ap.add_argument("--dryrun-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dryrun_child is not None:
+        dryrun_child(args.dryrun_child, args.out)
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1969,6 +2174,8 @@ def main() -> None:
     path_launches[SEQSHARD] = seqshard_phase(dev, card)
     free_device()
     path_launches[TRAIN] = train_phase(dev, card)
+    free_device()
+    path_launches[DRYRUN_CHECK] = dryrun_phase(dev, card)
     free_device()
     for e in entries:
         e["launches"] = path_launches[e["path"]][e["name"]]

@@ -1,8 +1,14 @@
 """Shared building blocks of the attention path: norms (RMS and layer norm),
 RoPE, GQA attention (causal, chunked, bidirectional and one-token decode),
 SwiGLU, the GELU MLP and top-k routed MoE — the PyTorch port of
-:mod:`repro.models.layers` (the reference's MoE sharding annotations belong
-to the distributed slice and are not here).
+:mod:`repro.models.layers`.
+
+On DTensor params (a mesh of ``data`` and ``model`` axes) the attention,
+the linears, the embedding and the MoE dispatch run on each rank's shard
+through :func:`repro_torch.sharding.partition.local_region`, in the
+reference's layouts: rows over the batch axes, heads, FFN columns, experts
+and vocab rows over ``model``.  On plain tensors every one of them runs
+the plain code below.
 
 Plain functions on tensors; params are plain dicts of tensors with the
 reference's layout (weights ``[in, out]``, applied as ``x @ w``).  Decode
@@ -13,6 +19,7 @@ plain version for a CPU tensor — there is no module-level switch.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -20,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.partition import (P, axis_index, axis_size, batch_axes, constrain,
+                                            local_region, partial_placements, split_axes)
 
 # --------------------------------------------------------------------------
 # norms
@@ -76,6 +85,60 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; on DTensors a vocab-parallel lookup on each rank's
+    shard: the table's rows over ``model`` (where they divide), each rank
+    looking up the tokens in its rows (0 elsewhere), the rows of ``tokens``
+    over the batch axes, the result a partial sum over ``model``."""
+
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), tokens.shape[0])
+        m = split_axes(mesh, "model", embed.shape[0])
+        return ([P(m, None), P(dp)], partial_placements(mesh, P(dp), m),
+                {"v0": axis_index(mesh, m) * (embed.shape[0] // axis_size(mesh, m))})
+
+    return local_region(_embed_rows, (embed, tokens), layout)
+
+
+def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor, *, v0: int | None = None):
+    """``embed[tokens]``, or with ``v0`` the rows ``[v0, v0 + len(embed))``
+    of a larger table: tokens outside them give 0."""
+    if v0 is None:
+        return embed[tokens]
+    local = tokens - v0
+    mine = (local >= 0) & (local < embed.shape[0])
+    return embed[local.clamp(0, embed.shape[0] - 1)] * mine[..., None].to(embed.dtype)
+
+
+def linear_cols(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; on DTensors a column-parallel product on each rank's
+    shard: ``x``'s rows over the batch axes and whole over ``model``, ``w
+    [in, out]`` whole but for its output columns over ``model`` (where they
+    divide) — a weight split over ``data`` (FSDP) is gathered first — and
+    the output's last dim over ``model``."""
+
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), x.shape[0])
+        m = split_axes(mesh, "model", w.shape[-1])
+        return [P(dp), P(None, m)], P(dp, *[None] * (x.dim() - 2), m), {}
+
+    return local_region(torch.matmul, (x, w), layout)
+
+
+def linear_rows(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w``; on DTensors a row-parallel product on each rank's shard:
+    ``h``'s last dim and ``w``'s input rows over ``model`` (where they
+    divide), the output a partial sum over ``model``."""
+
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), h.shape[0])
+        m = split_axes(mesh, "model", w.shape[0])
+        return ([P(dp, *[None] * (h.dim() - 2), m), P(m, None)],
+                partial_placements(mesh, P(dp), m), {})
+
+    return local_region(torch.matmul, (h, w), layout)
+
+
 def dense_init(fan_in: int, fan_out: int, *, generator: torch.Generator, device,
                dtype=torch.float32, scale: float | None = None) -> torch.Tensor:
     """``N(0, scale²)`` weights ``[fan_in, fan_out]``, drawn from ``generator``;
@@ -98,16 +161,88 @@ def init_attention(*, generator: torch.Generator, device, d_model: int, n_heads:
 def attention_qkv(p, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
                   n_kv_heads: int, head_dim: int, rope_theta: float, qk_norm: bool):
     """Project + (qk-)norm + RoPE.  ``x: [B, S, D]`` → q [B,S,H,d], k/v [B,S,Hk,d]."""
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    return split_heads(x @ p["wq"], x @ p["wk"], x @ p["wv"], positions, p, head_dim=head_dim,
+                       rope_theta=rope_theta, qk_norm=qk_norm)
+
+
+def split_heads(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, positions, norms, *,
+                head_dim: int, rope_theta: float | None, qk_norm: bool = False):
+    """Flat projections ``[..., heads·d]`` → ``[..., heads, d]``, with the
+    qk-norm (``norms["q_norm"]``, ``norms["k_norm"]``) and RoPE at
+    ``positions`` unless ``rope_theta`` is ``None``."""
+    q, k, v = (t.reshape(*t.shape[:-1], -1, head_dim) for t in (qf, kf, vf))
     if qk_norm:
-        q = rmsnorm(p["q_norm"], q)
-        k = rmsnorm(p["k_norm"], k)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+        q = rmsnorm(norms["q_norm"], q)
+        k = rmsnorm(norms["k_norm"], k)
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+def head_layout(mesh, batch: int, n_heads: int, n_kv_heads: int):
+    """How attention lies over ``mesh``: ``(dp, hq, hkv, h0)`` — the axes
+    that split the batch, the query heads and the KV heads (``None`` where a
+    dim stays whole: it does not divide, or the query heads' share would
+    straddle a KV head's group), and this rank's first query head."""
+    dp = split_axes(mesh, batch_axes(mesh), batch) if mesh is not None else None
+    hq = split_axes(mesh, "model", n_heads)
+    rep, hl = n_heads // n_kv_heads, n_heads // axis_size(mesh, hq)
+    if hq is not None and hl % rep and rep % hl:
+        hq = None
+    hkv = split_axes(mesh, "model", n_kv_heads) if hq is not None else None
+    return dp, hq, hkv, axis_index(mesh, hq) * hl if hq is not None else 0
+
+
+def local_kv_heads(k: torch.Tensor, h0: int, hl: int, rep: int) -> torch.Tensor:
+    """The KV heads ``[..., Hk, d]`` that query heads ``[h0, h0 + hl)`` read
+    (GQA groups of ``rep``): one head when ``hl < rep``."""
+    first = h0 // rep
+    return k[..., first:first + max(1, hl // rep), :]
+
+
+def _attention_local(qf, kf, vf, positions, norms, *, attend, head_dim: int, rope_theta,
+                     qk_norm: bool, rep: int, kv_from: int | None = None):
+    """One rank's attention over its heads: ``qf [B,S,Hl·d]``, ``kf/vf``
+    its KV heads, or all of them when ``kv_from`` (its first query head)
+    is given → ``(o [B,S,Hl·d], k, v)``, ``k/v`` post-RoPE as given."""
+    q, k, v = split_heads(qf, kf, vf, positions, norms, head_dim=head_dim,
+                          rope_theta=rope_theta, qk_norm=qk_norm)
+    kq, vq = k, v
+    if kv_from is not None:
+        kq = local_kv_heads(k, kv_from, q.shape[-2], rep)
+        vq = local_kv_heads(v, kv_from, q.shape[-2], rep)
+    o = attend(q, kq, vq)
+    return o.reshape(*o.shape[:-2], -1), k, v
+
+
+def attention(p, x: torch.Tensor, positions, *, n_heads: int, n_kv_heads: int, head_dim: int,
+              attend, rope_theta: float | None = None, qk_norm: bool = False):
+    """Q/K/V projections of ``x [B, S, D]``, qk-norm and RoPE, and
+    ``attend(q, k, v)`` (causal or bidirectional) → ``(o [B, S, H·d]``
+    before ``wo``, ``k, v)``.
+
+    On DTensors the projections are column-parallel (:func:`linear_cols`)
+    and the rest runs on each rank's shard
+    (:func:`~repro_torch.sharding.partition.local_region`): batch over the
+    batch axes, query heads over ``model`` where they divide
+    (:func:`head_layout`); KV heads that do not divide arrive whole and
+    each rank attends with its query heads' group.
+    """
+    qf, kf, vf = (linear_cols(x, p[w]) for w in ("wq", "wk", "wv"))
+    norms = {k: p[k] for k in ("q_norm", "k_norm") if qk_norm}
+
+    def layout(mesh):
+        dp, hq, hkv, h0 = head_layout(mesh, x.shape[0], n_heads, n_kv_heads)
+        kv = P(dp, None, hkv)
+        o, k4 = P(dp, None, hq), P(dp, None, hkv, None)
+        return ([P(dp, None, hq), kv, kv, P(dp, None), P()], [o, k4, k4],
+                {"kv_from": h0 if hq is not None and hkv is None else None})
+
+    return local_region(
+        functools.partial(_attention_local, attend=attend, head_dim=head_dim,
+                          rope_theta=rope_theta, qk_norm=qk_norm, rep=n_heads // n_kv_heads),
+        (qf, kf, vf, positions, norms), layout)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -115,6 +250,45 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return x
     return torch.repeat_interleave(x, n_rep, dim=-2)
+
+
+def split_kv(kf: torch.Tensor, vf: torch.Tensor, *, n_heads: int, n_kv_heads: int,
+             head_dim: int):
+    """Flat K/V projections ``[B, S, Hk·d]`` → ``[B, S, Hk, d]``; on
+    DTensors on each rank's shard, with the KV heads over ``model`` as
+    :func:`attention` lays them."""
+
+    def layout(mesh):
+        dp, _, hkv, _ = head_layout(mesh, kf.shape[0], n_heads, n_kv_heads)
+        return [P(dp, None, hkv)] * 2, [P(dp, None, hkv, None)] * 2, {}
+
+    return local_region(lambda k, v: (k.reshape(*k.shape[:-1], -1, head_dim),
+                                      v.reshape(*v.shape[:-1], -1, head_dim)), (kf, vf), layout)
+
+
+def _attend_local(qf, k, v, *, attend, rep: int, kv_from: int | None = None):
+    q = qf.reshape(*qf.shape[:-1], -1, k.shape[-1])
+    if kv_from is not None:
+        k = local_kv_heads(k, kv_from, q.shape[-2], rep)
+        v = local_kv_heads(v, kv_from, q.shape[-2], rep)
+    o = attend(q, k, v)
+    return o.reshape(*o.shape[:-2], -1)
+
+
+def attend_heads(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_heads: int,
+                 attend) -> torch.Tensor:
+    """``attend`` of the flat queries ``qf [B, S, H·d]`` over given ``k/v
+    [B, Sk, Hk, d]`` (:func:`split_kv`) → ``[B, S, H·d]``, laid out on
+    DTensors as :func:`attention`."""
+
+    def layout(mesh):
+        dp, hq, hkv, h0 = head_layout(mesh, qf.shape[0], n_heads, k.shape[2])
+        kv = P(dp, None, hkv, None)
+        return ([P(dp, None, hq), kv, kv], P(dp, None, hq),
+                {"kv_from": h0 if hq is not None and hkv is None else None})
+
+    return local_region(functools.partial(_attend_local, attend=attend,
+                                          rep=n_heads // k.shape[2]), (qf, k, v), layout)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -225,7 +399,10 @@ def gather_slots(dev_k: torch.Tensor, dev_v: torch.Tensor, slots: torch.Tensor,
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """SwiGLU; on DTensors tensor-parallel over ``model`` (its output a
+    partial sum there, :func:`linear_cols`, :func:`linear_rows`)."""
+    return linear_rows(F.silu(linear_cols(x, p["w_gate"])) * linear_cols(x, p["w_up"]),
+                       p["w_down"])
 
 
 def init_gelu_mlp(*, generator: torch.Generator, device, d_model: int, d_ff: int,
@@ -240,8 +417,10 @@ def init_gelu_mlp(*, generator: torch.Generator, device, d_model: int, d_ff: int
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu``'s default is the tanh approximation, so is this one's."""
-    return F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh") @ p["w_down"] + p["b_down"]
+    """``jax.nn.gelu``'s default is the tanh approximation, so is this one's.
+    On DTensors tensor-parallel over ``model``, as :func:`swiglu`."""
+    h = F.gelu(linear_cols(x, p["w_up"]) + p["b_up"], approximate="tanh")
+    return linear_rows(h, p["w_down"]) + p["b_down"]
 
 
 # --------------------------------------------------------------------------
@@ -250,10 +429,11 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 # Optional sharding of the MoE dispatch, set by a launcher that runs the model
-# on DTensor params: ``{"buf": P(dp, "model", None, None), "y": P(dp, None,
-# None)}`` pins the per-row expert buffer to (batch → data, expert → model),
-# so that dispatch is a token all-to-all.  Unset, or on plain tensors, the
-# hook does nothing.
+# on DTensor params: ``{"buf": ..., "y": P(dp, None, None)}``.  ``y`` pins the
+# routed output's layout.  The expert buffer is built inside each rank's
+# region (rows over the batch axes, this rank's experts), so ``buf`` meets
+# only local tensors there and changes nothing.  Unset, or on plain tensors,
+# the hook does nothing.
 _MOE_PSPECS: dict | None = None
 
 
@@ -265,7 +445,6 @@ def set_moe_pspecs(specs: dict | None) -> None:
 def _moe_constrain(name: str, x: torch.Tensor) -> torch.Tensor:
     if _MOE_PSPECS is None or name not in _MOE_PSPECS:
         return x
-    from repro_torch.sharding.partition import constrain
     return constrain(x, _MOE_PSPECS[name])
 
 
@@ -309,10 +488,50 @@ def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
     taken by a stable descending sort, so equal probabilities rank the lower
     expert first, as ``jax.lax.top_k`` does.  ``aux_loss`` is the Switch
     load-balance loss.
+
+    On DTensors the routing, dispatch and combine run on each rank's shard
+    (:func:`~repro_torch.sharding.partition.local_region`): a rank routes
+    its batch rows over every expert, runs only its own experts (the
+    expert axis of ``w_gate/w_up/w_down`` lies over ``model``) and returns
+    its share of ``y`` as a partial sum over ``model``; the means of the
+    load-balance loss come back as partial sums of each rank's share.
     """
-    b, s, d = x.shape
     e = p["router"].shape[1]
-    probs = torch.softmax((x @ p["router"]).float(), dim=-1)               # [B,S,E]
+
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), x.shape[0])
+        ex = split_axes(mesh, "model", e)
+        w = P(ex, None, None)
+        # the loss statistics: each rank's 1/n share of their means, summed
+        # over the batch axes and ``model`` (a partial sum, not a partial
+        # mean: DTensor passes a partial output's gradient to each rank whole)
+        stat_axes = tuple(dp or ()) + ((ex,) if ex else ())
+        stat = partial_placements(mesh, P(), stat_axes)
+        return ([P(), w, w, w, P(dp, None, None)],
+                [partial_placements(mesh, P(dp, None, None), ex), stat, stat],
+                {"e0": axis_index(mesh, ex) * (e // axis_size(mesh, ex)),
+                 "shares": axis_size(mesh, stat_axes)})
+
+    y, me, ce = local_region(
+        functools.partial(_moe_routed, top_k=top_k, capacity_factor=capacity_factor),
+        (p["router"], p["w_gate"], p["w_up"], p["w_down"], x), layout)
+    y = _moe_constrain("y", y)
+    if "shared" in p:
+        y = y + swiglu(p["shared"], x)
+    aux = e * torch.sum(me * ce)
+    return y, aux
+
+
+def _moe_routed(router, w_gate, w_up, w_down, x: torch.Tensor, *, top_k: int,
+                capacity_factor: float, e0: int = 0, shares: int = 1):
+    """The routed experts of :func:`moe` over the experts ``[e0, e0 + El)``
+    that ``w_gate/w_up/w_down [El, ...]`` hold (all of them by default) →
+    ``(y [B, S, D], me [E], ce [E])``: ``y`` those experts' share of the
+    output, ``me`` and ``ce`` the mean router probability and the routed
+    fraction of each expert over the rows."""
+    b, s, d = x.shape
+    e, el = router.shape[1], w_gate.shape[0]
+    probs = torch.softmax((x @ router).float(), dim=-1)                    # [B,S,E]
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = gate_vals[..., :top_k], gate_idx[..., :top_k]    # [B,S,K]
     gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
@@ -335,20 +554,26 @@ def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
     buf = x.new_zeros((b, e, cap + 1, d))
     buf.index_put_((bidx, expert_of, pos_safe), x[bidx, token_of])
     buf = _moe_constrain("buf", buf[:, :, :cap])          # [B(data), E(model), C, D]
+    if el < e:                                             # this rank's experts
+        buf = buf[:, e0:e0 + el]
 
-    h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"]))
-    h = h * torch.einsum("becd,edf->becf", buf, p["w_up"])
-    out = _moe_constrain("buf", torch.einsum("becf,efd->becd", h, p["w_down"]))  # [B,E,C,D]
+    h = F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
+    h = h * torch.einsum("becd,edf->becf", buf, w_up)
+    out = _moe_constrain("buf", torch.einsum("becf,efd->becd", h, w_down))  # [B,E,C,D]
 
-    y_tok = out[bidx, expert_of, pos_safe.clamp(0, cap - 1)]            # [B,T,D]
-    y_tok = y_tok * (gates * keep).to(y_tok.dtype)[..., None]
+    if el < e:
+        mine = (expert_of >= e0) & (expert_of < e0 + el)
+        y_tok = out[bidx, (expert_of - e0).clamp(0, el - 1), pos_safe.clamp(0, cap - 1)]
+        y_tok = y_tok * (gates * keep * mine).to(y_tok.dtype)[..., None]
+    else:
+        y_tok = out[bidx, expert_of, pos_safe.clamp(0, cap - 1)]            # [B,T,D]
+        y_tok = y_tok * (gates * keep).to(y_tok.dtype)[..., None]
     # each token's k assignments are adjacent: sum them (the reference's
     # scatter-add onto the token, in a fixed order)
-    y = _moe_constrain("y", y_tok.reshape(b, s, top_k, d).sum(dim=2))
-    if "shared" in p:
-        y = y + swiglu(p["shared"], x)
+    y = y_tok.reshape(b, s, top_k, d).sum(dim=2)
 
     me = probs.mean(dim=(0, 1))                                         # [E]
     ce = F.one_hot(gate_idx, e).sum(dim=2).float().mean(dim=(0, 1))     # routed fraction
-    aux = e * torch.sum(me * ce)
-    return y, aux
+    if shares > 1:                # this rank's share of statistics every rank computes
+        me, ce = me / shares, ce / shares
+    return y, me, ce

@@ -18,17 +18,25 @@ matrix memory ``c [B, H, d, d]`` with its normaliser and stabiliser, the
 sLSTM a scalar memory with a true hidden recurrence.  Their full-sequence
 forward is the reference's scan over time, as a Python loop over tokens
 (no chunkwise-parallel form), and they launch no kernel.
+
+On DTensor params the projections are tensor-parallel over ``model`` and
+the mixers in between (Mamba2's conv and SSD, the xLSTM scans) run on each
+rank's batch rows, whole over ``model`` (:func:`_state_region`,
+:func:`_xlstm_region`); on plain tensors they run as written.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, linear_cols, linear_rows, rmsnorm
+from repro_torch.sharding.partition import (P, axis_index, axis_size, batch_axes, local_region,
+                                            split_axes)
 
 
 def init_mamba2(*, generator: torch.Generator, device, d_model: int, d_state: int,
@@ -58,7 +66,7 @@ def init_mamba2(*, generator: torch.Generator, device, d_model: int, d_state: in
 
 def mamba2_meta(p) -> dict:
     """Dims from the param shapes."""
-    d_inner = p["out_proj"].shape[0]
+    d_inner = p["norm"]["scale"].shape[0]
     d_conv = p["conv_w"].shape[1]
     d_state = (p["conv_w"].shape[0] - d_inner) // 2
     n_heads = p["a_log"].shape[0]
@@ -68,20 +76,13 @@ def mamba2_meta(p) -> dict:
 
 def mamba2_init_state(p, batch: int, dtype=torch.float32) -> dict:
     m = mamba2_meta(p)
-    dev = p["out_proj"].device
+    dev = p["conv_w"].device
     return {
         "conv": torch.zeros((batch, m["d_inner"] + 2 * m["d_state"], m["d_conv"] - 1),
                             dtype=dtype, device=dev),
         "ssm": torch.zeros((batch, m["n_heads"], m["head_p"], m["d_state"]),
                            dtype=dtype, device=dev),
     }
-
-
-def _mamba2_split(p, x: torch.Tensor):
-    """in_proj + split.  ``x [B,S,D]`` → z, xc, b, c, dt."""
-    m = mamba2_meta(p)
-    di, ds, nh = m["d_inner"], m["d_state"], m["n_heads"]
-    return torch.split(x @ p["in_proj"], [di, di, ds, ds, nh], dim=-1)
 
 
 def _causal_conv(p, xbc: torch.Tensor, conv_state: torch.Tensor | None = None):
@@ -96,7 +97,50 @@ def _causal_conv(p, xbc: torch.Tensor, conv_state: torch.Tensor | None = None):
     windows = full.unfold(-1, dk, 1)                          # [B,C,S,dk]
     out = torch.einsum("bcsk,ck->bcs", windows, p["conv_w"]) + p["conv_b"][None, :, None]
     out = F.silu(out).transpose(1, 2)                         # [B,S,C]
-    return out, full[:, :, -(dk - 1):]
+    # the carried window as a tensor of its own: a view would keep the whole
+    # padded sequence [B, C, S + dk - 1] alive for as long as the state
+    return out, full[:, :, -(dk - 1):].contiguous()
+
+
+_MIXER = ("conv_w", "conv_b", "a_log", "d_skip", "dt_bias", "norm")
+
+
+def _mixer(p) -> dict:
+    return {k: p[k] for k in _MIXER}
+
+
+def _state_region(fn, p, zxbcdt: torch.Tensor, state: dict, **kw):
+    """``fn(mixer params, zxbcdt, state, **kw)`` → ``(y, state)`` on each
+    rank's shard: ``in_proj``'s output arrives whole (its split into z, x,
+    B, C and dt does not follow the ``model`` split of its columns), the
+    rows over the batch axes; ``y [..., d_inner]`` comes back whole, and
+    the state in the serving cache's layout (channels and heads over
+    ``model``, :func:`~repro_torch.sharding.cache_pspecs`), each rank
+    keeping its slice."""
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), zxbcdt.shape[0])
+        md = split_axes(mesh, "model", state["conv"].shape[1])
+        mh = split_axes(mesh, "model", state["ssm"].shape[1])
+        if md is None or mh is None:
+            md = mh = None
+        y = P(dp)
+        st_in = {"conv": P(dp, None, None), "ssm": P(dp, None, None, None)}
+        st_out = {"conv": P(dp, md, None), "ssm": P(dp, mh, None, None)}
+        # every rank of ``model`` computes the same y: gradients are whole there
+        return ([P(), y, st_in], [y, st_out["conv"], st_out["ssm"]],
+                {"part": axis_index(mesh, md), "parts": axis_size(mesh, md)}, dp)
+
+    return local_region(functools.partial(_keep_part, fn, **kw), (_mixer(p), zxbcdt, state),
+                        layout)
+
+
+def _keep_part(fn, pm, zxbcdt, state, *, part: int = 0, parts: int = 1, **kw):
+    """``fn``'s ``(y, state)`` with the state cut to slice ``part`` of
+    ``parts`` along its channel / head dim (the whole state for one part)."""
+    y, st = fn(pm, zxbcdt, state, **kw)
+    if parts > 1:
+        st = {k: t.chunk(parts, dim=1)[part].contiguous() for k, t in st.items()}
+    return y, st
 
 
 def mamba2_forward(p, x: torch.Tensor, state: dict | None = None, *, chunk: int = 128):
@@ -106,20 +150,29 @@ def mamba2_forward(p, x: torch.Tensor, state: dict | None = None, *, chunk: int 
     :func:`repro_torch.kernels.ops.ssd_chunk`; the inter-chunk state
     ``h [B, H, P, N]`` is carried chunk by chunk.  The tail is zero-padded
     to a whole chunk (dt and log-decay 0, so padded tokens add nothing).
+    On DTensors the mixer between ``in_proj`` and ``out_proj`` runs on each
+    rank's rows (:func:`_state_region`).
     """
+    if state is None:
+        state = mamba2_init_state(p, x.shape[0], x.dtype)
+    y, state = _state_region(_mamba2_mix, p, linear_cols(x, p["in_proj"]), state, chunk=chunk)
+    return linear_rows(y, p["out_proj"]), state
+
+
+def _mamba2_mix(p, zxbcdt: torch.Tensor, state: dict, *, chunk: int = 128):
+    """The mixer of :func:`mamba2_forward` from ``in_proj``'s output
+    ``[B, S, 2·d_inner + 2·N + H]`` to the gated, normed ``y [B, S,
+    d_inner]``, and the new state."""
     m = mamba2_meta(p)
     nh, hp, ds = m["n_heads"], m["head_p"], m["d_state"]
-    bsz, s, _ = x.shape
-    if state is None:
-        state = mamba2_init_state(p, bsz, x.dtype)
-
-    z, xc, bmat, cmat, dt = _mamba2_split(p, x)
+    bsz, s, _ = zxbcdt.shape
+    z, xc, bmat, cmat, dt = torch.split(zxbcdt, [m["d_inner"], m["d_inner"], ds, ds, nh], dim=-1)
     xbc = torch.cat([xc, bmat, cmat], dim=-1)
     xbc, conv_state = _causal_conv(p, xbc, state["conv"])
     xc, bmat, cmat = torch.split(xbc, [m["d_inner"], ds, ds], dim=-1)
 
     # SSD recurrence in float32: exp/cumsum chains underflow in bf16
-    in_dtype = x.dtype
+    in_dtype = zxbcdt.dtype
     state_dtype = state["ssm"].dtype
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())                        # [H] (negative)
@@ -161,15 +214,22 @@ def mamba2_forward(p, x: torch.Tensor, state: dict | None = None, *, chunk: int 
     y = y + xc.float().reshape(bsz, s, nh, hp) * p["d_skip"].float()[None, None, :, None]
     y = y.reshape(bsz, s, nh * hp).to(in_dtype)
     y = rmsnorm(p["norm"], y * F.silu(z))
-    return y @ p["out_proj"], {"conv": conv_state, "ssm": h.to(state_dtype)}
+    return y, {"conv": conv_state, "ssm": h.to(state_dtype)}
 
 
 def mamba2_step(p, x: torch.Tensor, state: dict):
     """Single-token decode.  ``x [B, D]`` → ``(y [B, D], state)``."""
+    y, state = _state_region(_mamba2_step_mix, p, linear_cols(x[:, None], p["in_proj"]), state)
+    return linear_rows(y, p["out_proj"]), state
+
+
+def _mamba2_step_mix(p, zxbcdt: torch.Tensor, state: dict):
+    """The mixer of :func:`mamba2_step` from ``in_proj``'s output ``[B, 1,
+    ·]`` to ``y [B, d_inner]`` and the new state."""
     m = mamba2_meta(p)
     nh, hp, ds = m["n_heads"], m["head_p"], m["d_state"]
-    bsz = x.shape[0]
-    z, xc, bmat, cmat, dt = _mamba2_split(p, x[:, None])      # seq dim = 1
+    bsz = zxbcdt.shape[0]
+    z, xc, bmat, cmat, dt = torch.split(zxbcdt, [m["d_inner"], m["d_inner"], ds, ds, nh], dim=-1)
     xbc = torch.cat([xc, bmat, cmat], dim=-1)[:, 0]           # [B,C]
     conv = torch.cat([state["conv"], xbc[:, :, None]], dim=-1)   # [B,C,dk]
     out = F.silu(torch.einsum("bck,ck->bc", conv, p["conv_w"]) + p["conv_b"])
@@ -184,7 +244,7 @@ def mamba2_step(p, x: torch.Tensor, state: dict):
     y = torch.einsum("bhpn,bn->bhp", h, c1) + xh * p["d_skip"][None, :, None]
     y = y.reshape(bsz, nh * hp)
     y = rmsnorm(p["norm"], y * F.silu(z[:, 0]))
-    return y @ p["out_proj"], {"conv": conv[:, :, 1:], "ssm": h}
+    return y, {"conv": conv[:, :, 1:], "ssm": h}
 
 
 # --------------------------------------------------------------------------
@@ -232,6 +292,12 @@ def _mlstm_gates(p, x: torch.Tensor):
     return g[..., :h], g[..., h:]          # pre-activation i, f
 
 
+def _promote(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` in the dtype ``a`` and ``b`` promote to (bf16 activations
+    against an fp32 state compute in fp32, as ``jnp`` promotes them)."""
+    return a.to(torch.promote_types(a.dtype, b.dtype))
+
+
 def _mlstm_cell(p, state: dict, q, k, v, i_pre, f_pre):
     """One step.  ``q, k, v [B,H,d]``; ``i_pre, f_pre [B,H]``."""
     d = q.shape[-1]
@@ -243,42 +309,62 @@ def _mlstm_cell(p, state: dict, q, k, v, i_pre, f_pre):
     k_s = k / math.sqrt(d)
     c = f[..., None, None] * state["c"] + i[..., None, None] * (k_s[..., :, None] * v[..., None, :])
     n = f[..., None] * state["n"] + i[..., None] * k_s
-    denom = torch.maximum(torch.einsum("bhd,bhd->bh", n, q).abs(), torch.exp(-m_new))
-    y = torch.einsum("bhd,bhde->bhe", q, c) / denom[..., None]
+    denom = torch.maximum(torch.einsum("bhd,bhd->bh", n, _promote(q, n)).abs(), torch.exp(-m_new))
+    y = torch.einsum("bhd,bhde->bhe", _promote(q, c), c) / denom[..., None]
     return {"c": c, "n": n, "m": m_new}, y
 
 
+def _xlstm_region(fn, args: tuple, state: dict):
+    """``fn(*args, state)`` → ``(y, state)`` on each rank's rows: every
+    tensor of ``args`` whole over ``model`` (the heads do not divide it),
+    the rows of ``args``, ``state`` and ``y`` over the batch axes."""
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), next(iter(state.values())).shape[0])
+        return [P()] + [P(dp)] * (len(args) - 1) + [P(dp)], [P(dp)] * (1 + len(state)), {}
+
+    return local_region(fn, args + (state,), layout)
+
+
 def mlstm_forward(p, x: torch.Tensor, state: dict | None = None):
-    """``x [B,S,D]`` → ``(y [B,S,D], state)``, one token at a time."""
-    m = mlstm_meta(p)
-    h, hd = m["n_heads"], m["head_dim"]
-    bsz, s, dmod = x.shape
+    """``x [B,S,D]`` → ``(y [B,S,D], state)``, one token at a time (on
+    DTensors the scan runs on each rank's rows, :func:`_xlstm_region`)."""
     if state is None:
-        state = mlstm_init_state(p, bsz)
-    q = (x @ p["wq"]).reshape(bsz, s, h, hd)
-    k = (x @ p["wk"]).reshape(bsz, s, h, hd)
-    v = (x @ p["wv"]).reshape(bsz, s, h, hd)
+        state = mlstm_init_state(p, x.shape[0])
+    q, k, v = (linear_cols(x, p[w]) for w in ("wq", "wk", "wv"))
     ip, fp = _mlstm_gates(p, x)                         # [B,S,H]
+    ys, state = _xlstm_region(_mlstm_scan, (p["norm"], q, k, v, ip, fp), state)
+    return linear_rows(ys, p["wo"]), state
+
+
+def _mlstm_scan(norm, q, k, v, ip, fp, state: dict):
+    """The token loop of :func:`mlstm_forward` from the flat projections
+    ``q/k/v [B,S,D]`` and gate pre-activations ``[B,S,H]`` to the normed
+    ``ys [B,S,D]`` before ``wo``."""
+    bsz, s, dmod = q.shape
+    h = ip.shape[-1]
+    q, k, v = (t.reshape(bsz, s, h, dmod // h) for t in (q, k, v))
     ys = []
     for t in range(s):
-        state, y = _mlstm_cell(p, state, q[:, t], k[:, t], v[:, t], ip[:, t], fp[:, t])
+        state, y = _mlstm_cell(None, state, q[:, t], k[:, t], v[:, t], ip[:, t], fp[:, t])
         ys.append(y)
-    ys = rmsnorm(p["norm"], torch.stack(ys, dim=1)).reshape(bsz, s, dmod)
-    return ys @ p["wo"], state
+    ys = rmsnorm(norm, torch.stack(ys, dim=1)).reshape(bsz, s, dmod)
+    return ys, state
 
 
 def mlstm_step(p, x: torch.Tensor, state: dict):
     """Single-token decode.  ``x [B, D]`` → ``(y [B, D], state)``."""
-    m = mlstm_meta(p)
-    h, hd = m["n_heads"], m["head_dim"]
-    bsz, dmod = x.shape
-    q = (x @ p["wq"]).reshape(bsz, h, hd)
-    k = (x @ p["wk"]).reshape(bsz, h, hd)
-    v = (x @ p["wv"]).reshape(bsz, h, hd)
+    q, k, v = (linear_cols(x, p[w]) for w in ("wq", "wk", "wv"))
     ip, fp = _mlstm_gates(p, x)
-    state, y = _mlstm_cell(p, state, q, k, v, ip, fp)
-    y = rmsnorm(p["norm"], y).reshape(bsz, dmod)
-    return y @ p["wo"], state
+    y, state = _xlstm_region(_mlstm_step_local, (p["norm"], q, k, v, ip, fp), state)
+    return linear_rows(y, p["wo"]), state
+
+
+def _mlstm_step_local(norm, q, k, v, ip, fp, state: dict):
+    bsz, dmod = q.shape
+    h = ip.shape[-1]
+    q, k, v = (t.reshape(bsz, h, dmod // h) for t in (q, k, v))
+    state, y = _mlstm_cell(None, state, q, k, v, ip, fp)
+    return rmsnorm(norm, y).reshape(bsz, dmod), state
 
 
 def init_slstm(*, generator: torch.Generator, device, d_model: int, n_heads: int,
@@ -314,7 +400,8 @@ def _slstm_cell(p, state: dict, x_t: torch.Tensor):
     m = slstm_meta(p)
     nh, hds = m["n_heads"], m["head_dim"]
     bsz, dmod = x_t.shape
-    g = x_t @ p["w_x"] + state["h"].reshape(bsz, dmod) @ p["w_h"] + p["b"]
+    h_prev = state["h"].reshape(bsz, dmod)
+    g = x_t @ p["w_x"] + _promote(h_prev, p["w_h"]) @ _promote(p["w_h"], h_prev) + p["b"]
     z, i_pre, f_pre, o = g.chunk(4, dim=-1)
     rs = lambda t: t.reshape(bsz, nh, hds)
     z, o = torch.tanh(rs(z)), torch.sigmoid(rs(o))
@@ -331,21 +418,33 @@ def _slstm_cell(p, state: dict, x_t: torch.Tensor):
     return {"c": c, "n": n, "h": h_new, "m": m_new}, h_new
 
 
+_SLSTM = ("w_x", "w_h", "b", "norm")
+
+
 def slstm_forward(p, x: torch.Tensor, state: dict | None = None):
-    """``x [B,S,D]`` → ``(y [B,S,D], state)``, one token at a time."""
-    bsz, s, dmod = x.shape
+    """``x [B,S,D]`` → ``(y [B,S,D], state)``, one token at a time (on
+    DTensors the scan runs on each rank's rows, :func:`_xlstm_region`)."""
     if state is None:
-        state = slstm_init_state(p, bsz)
+        state = slstm_init_state(p, x.shape[0])
+    hs, state = _xlstm_region(_slstm_scan, ({k: p[k] for k in _SLSTM}, x), state)
+    return linear_rows(hs, p["wo"]), state
+
+
+def _slstm_scan(p, x: torch.Tensor, state: dict):
+    bsz, s, dmod = x.shape
     hs = []
     for t in range(s):
         state, h = _slstm_cell(p, state, x[:, t])
         hs.append(h)
-    hs = rmsnorm(p["norm"], torch.stack(hs, dim=1)).reshape(bsz, s, dmod)
-    return hs @ p["wo"], state
+    return rmsnorm(p["norm"], torch.stack(hs, dim=1)).reshape(bsz, s, dmod), state
 
 
 def slstm_step(p, x: torch.Tensor, state: dict):
     """Single-token decode.  ``x [B, D]`` → ``(y [B, D], state)``."""
+    h, state = _xlstm_region(_slstm_step_local, ({k: p[k] for k in _SLSTM}, x), state)
+    return linear_rows(h, p["wo"]), state
+
+
+def _slstm_step_local(p, x: torch.Tensor, state: dict):
     state, h = _slstm_cell(p, state, x)
-    h = rmsnorm(p["norm"], h).reshape(x.shape[0], -1)
-    return h @ p["wo"], state
+    return rmsnorm(p["norm"], h).reshape(x.shape[0], -1), state

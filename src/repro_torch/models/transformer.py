@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.sharding.partition import constrain, like, rows
 
 ATTN_KINDS = ("attn", "moe_attn", "shared_attn")
 
@@ -43,7 +44,6 @@ def set_activation_pspec(spec) -> None:
 def _act_constrain(x: torch.Tensor) -> torch.Tensor:
     if _ACT_PSPEC is None or x.dim() != 3:
         return x
-    from repro_torch.sharding.partition import constrain
     return constrain(x, _ACT_PSPEC)
 
 
@@ -233,11 +233,13 @@ def block_forward(params, cfg: ModelConfig, layer: int, x: torch.Tensor,
     kind = cfg.blocks[layer]
     if kind in ATTN_KINDS:
         nb, attn_p, mlp_holder = _attn_params(params, cfg, layer)
-        q, k, v = _qkv(cfg, attn_p, L.rmsnorm(nb["attn_norm"], x), positions)
-        o = L.causal_attention(q, k, v)
-        x = x + o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim) @ attn_p["wo"]
+        o, k, v = L.attention(attn_p, L.rmsnorm(nb["attn_norm"], x), positions,
+                              n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                              head_dim=cfg.head_dim, attend=L.causal_attention,
+                              rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
+        x = x + like(L.linear_rows(o, attn_p["wo"]), x)
         y, aux = _ffn(params, cfg, layer, mlp_holder, L.rmsnorm(mlp_holder["mlp_norm"], x))
-        return _act_constrain(x + y), aux, ((k, v) if return_kv else None)
+        return _act_constrain(x + like(y, x)), aux, ((k, v) if return_kv else None)
     blk = params["blocks"][layer]
     h = L.rmsnorm(blk["norm"], x)
     if kind == "mamba2":
@@ -246,7 +248,7 @@ def block_forward(params, cfg: ModelConfig, layer: int, x: torch.Tensor,
         y, st = S.mlstm_forward(blk["mlstm"], h, state)
     else:
         y, st = S.slstm_forward(blk["slstm"], h, state)
-    return x + y, 0.0, st
+    return x + like(y, x), 0.0, st
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor | None, *,
@@ -259,7 +261,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor | None, *,
     non-reentrant): its activations are recomputed in the backward pass,
     so the live activations are one block's, not every block's.
     """
-    x = params["embed"][tokens] if embeddings is None else embeddings
+    x = rows(L.embed_lookup(params["embed"], tokens)) if embeddings is None else embeddings
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].repeat(b, 1)
     aux_total = 0.0
@@ -272,7 +274,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor | None, *,
         aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head, aux_total
+    return L.linear_cols(x, head), aux_total
 
 
 # --------------------------------------------------------------------------

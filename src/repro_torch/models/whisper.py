@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
+from repro_torch.sharding.partition import like, rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,24 +96,31 @@ def _proj_qkv(p, x: torch.Tensor, cfg: WhisperConfig):
     return q, k, v
 
 
+def _self_attention(blk, cfg: WhisperConfig, h: torch.Tensor, attend) -> torch.Tensor:
+    """Self-attention of a block on the normed ``h [B, S, D]`` → ``[B, S,
+    H·d]`` before ``wo`` (:func:`repro_torch.models.layers.attention`)."""
+    return L.attention(blk["attn"], h, None, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                       head_dim=cfg.head_dim, attend=attend)[0]
+
+
 def encode(params, cfg: WhisperConfig, frames: torch.Tensor) -> torch.Tensor:
     """Encoder over stubbed frame embeddings ``[B, S_enc, D]``."""
     b, s, _ = frames.shape
-    x = frames + sinusoid_positions(torch.arange(s, device=frames.device), cfg.d_model)[None]
+    pe = sinusoid_positions(torch.arange(s, device=frames.device), cfg.d_model)
+    x = rows(frames + pe[None].to(frames.dtype))
     for blk in params["enc_blocks"]:
-        q, k, v = _proj_qkv(blk["attn"], L.layernorm(blk["ln1"], x), cfg)
-        o = L.bidirectional_attention(q, k, v)
-        x = x + o.reshape(b, s, -1) @ blk["attn"]["wo"]
-        x = x + L.gelu_mlp(blk["mlp"], L.layernorm(blk["ln_mlp"], x))
+        o = _self_attention(blk, cfg, L.layernorm(blk["ln1"], x), L.bidirectional_attention)
+        x = x + like(L.linear_rows(o, blk["attn"]["wo"]), x)
+        x = x + like(L.gelu_mlp(blk["mlp"], L.layernorm(blk["ln_mlp"], x)), x)
     return L.layernorm(params["enc_norm"], x)
 
 
 def cross_kv(params, cfg: WhisperConfig, enc_out: torch.Tensor) -> list:
     """Each decoder layer's cross-attention ``(K, V) [B, S_enc, H_kv, d]``
     from the encoder output."""
-    b, s, _ = enc_out.shape
-    return [((enc_out @ blk["cross"]["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
-             (enc_out @ blk["cross"]["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim))
+    return [L.split_kv(L.linear_cols(enc_out, blk["cross"]["wk"]),
+                       L.linear_cols(enc_out, blk["cross"]["wv"]),
+                       n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
             for blk in params["dec_blocks"]]
 
 
@@ -121,14 +129,14 @@ def cross_and_mlp(blk, cfg: WhisperConfig, x: torch.Tensor, ck: torch.Tensor,
     """A decoder block's cross-attention over ``(ck, cv)`` and its MLP, each
     with its residual: ``x [B, S, D]``, or ``[B, D]`` for one decode token."""
     hc = L.layernorm(blk["ln_cross"], x)
-    lead = hc.shape[:-1]
-    qc = (hc @ blk["cross"]["wq"]).reshape(*lead, cfg.n_heads, cfg.head_dim)
+    qc = L.linear_cols(hc, blk["cross"]["wq"])
     if hc.dim() == 2:                    # decode: add a seq axis
-        oc = L.bidirectional_attention(qc[:, None], ck, cv)[:, 0]
+        oc = L.attend_heads(qc[:, None], ck, cv, n_heads=cfg.n_heads,
+                            attend=L.bidirectional_attention)[:, 0]
     else:
-        oc = L.bidirectional_attention(qc, ck, cv)
-    x = x + oc.reshape(*lead, -1) @ blk["cross"]["wo"]
-    return x + L.gelu_mlp(blk["mlp"], L.layernorm(blk["ln_mlp"], x))
+        oc = L.attend_heads(qc, ck, cv, n_heads=cfg.n_heads, attend=L.bidirectional_attention)
+    x = x + like(L.linear_rows(oc, blk["cross"]["wo"]), x)
+    return x + like(L.gelu_mlp(blk["mlp"], L.layernorm(blk["ln_mlp"], x)), x)
 
 
 def decoder_forward(params, cfg: WhisperConfig, tokens: torch.Tensor,
@@ -136,14 +144,13 @@ def decoder_forward(params, cfg: WhisperConfig, tokens: torch.Tensor,
     """Teacher-forced decoder: ``tokens [B, S]`` → ``(logits [B, S, V],
     None)``, as the reference returns it (no auxiliary loss)."""
     b, s = tokens.shape
-    x = params["embed"][tokens] + sinusoid_positions(
-        torch.arange(s, device=tokens.device), cfg.d_model)[None]
+    pe = sinusoid_positions(torch.arange(s, device=tokens.device), cfg.d_model)
+    x = rows(L.embed_lookup(params["embed"], tokens) + pe[None].to(params["embed"].dtype))
     for blk, (ck, cv) in zip(params["dec_blocks"], cross_kv(params, cfg, enc_out)):
-        q, k, v = _proj_qkv(blk["attn"], L.layernorm(blk["ln1"], x), cfg)
-        o = L.causal_attention(q, k, v)
-        x = x + o.reshape(b, s, -1) @ blk["attn"]["wo"]
+        o = _self_attention(blk, cfg, L.layernorm(blk["ln1"], x), L.causal_attention)
+        x = x + like(L.linear_rows(o, blk["attn"]["wo"]), x)
         x = cross_and_mlp(blk, cfg, x, ck, cv)
-    return L.layernorm(params["final_norm"], x) @ params["embed"].T, None
+    return L.linear_cols(L.layernorm(params["final_norm"], x), params["embed"].T), None
 
 
 class WhisperAdapter:

@@ -22,11 +22,19 @@ write the new entries into the cache's tensors, at ``[:, length]`` or at
 the rolling slot, and return the same dict.  ``length`` and ``main_len``
 are host ints, so a step never waits on the device to learn where to
 write.  A caller that needs the old cache keeps a copy of its tensors.
+
+**On DTensors** (params and cache laid out by
+:mod:`repro_torch.sharding` over a mesh, as the dry run does) each
+attention layer's step runs on each rank's shard (:func:`_decode_attn`):
+the writes stay local, and a cache split along the sequence
+(``long_500k``) selects over every shard's gathered group scores and
+combines per-shard partial softmaxes, so no layer is ever gathered whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -37,6 +45,9 @@ from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
 from repro_torch.models.transformer import ATTN_KINDS
+from repro_torch.serving.distributed import combine, shard_partial
+from repro_torch.sharding.partition import (P, axis_index, axis_size, like, local_region,
+                                            rows)
 
 NEG = -1e30
 
@@ -173,36 +184,42 @@ def _top_groups(gsc: torch.Tensor, m: int):
     return top_sc[:, :m], gids[:, :m]
 
 
-def _kvswap_decode_attn(q, ent, adapter, length: int, k_new, v_new, scfg: KVSwapServeConfig,
-                        n_kv_heads: int, main_len: int | None = None, q_pred=None):
-    """Grouped low-rank selection + gathered attention (Eq. 1 / §3.3).
-
-    With ``scfg.rolling``, selection covers only the flushed prefix
-    (``main_len`` tokens) and the rolling buffer's recent tokens are always
-    attended (§3.4.1).  ``q_pred`` is the query used for *scoring* only
-    (cross-layer prediction); attention always uses the true ``q``."""
-    b, h, d = q.shape
-    g, m = scfg.group_size, scfg.n_select
-    n = ent["k"].shape[1]
-    n_groups = n // g
-    flushed = length if main_len is None else main_len
-    if q_pred is None:
-        q_pred = q
-
-    # Eq. 1: low-rank queries per head, shared-K-head adapter slices
+def _group_scores(q_pred, k_lr, adapter, flushed: int, scfg: KVSwapServeConfig,
+                  n_kv_heads: int, start: int = 0):
+    """Eq. 1 over ``k_lr [B, n, r]`` (positions from ``start``): low-rank
+    queries per head through the shared-K-head adapter slices, head-summed
+    scores masked past ``flushed`` → ``[B, n // G]`` group maxima."""
+    b, h, d = q_pred.shape
+    g = scfg.group_size
+    n = k_lr.shape[1]
     a_h = torch.repeat_interleave(adapter.reshape(n_kv_heads, d, -1), h // n_kv_heads, dim=0)
-    q_lr = torch.einsum("bhd,hdr->bhr", q_pred, a_h)            # [B,H,r]
-    scores = torch.einsum("bhr,bnr->bn", q_lr, ent["k_lr"])     # head-summed
-    pos = torch.arange(n, device=q.device)
+    q_lr = torch.einsum("bhd,hdr->bhr", q_pred, a_h)             # [B,H,r]
+    scores = torch.einsum("bhr,bnr->bn", q_lr, k_lr)             # head-summed
+    pos = torch.arange(n, device=k_lr.device) + start if start else \
+        torch.arange(n, device=k_lr.device)
     scores = scores.masked_fill((pos >= flushed)[None, :], NEG)
-    gsc = scores[:, : n_groups * g].reshape(b, n_groups, g).amax(dim=-1)
-    top_sc, gids = _top_groups(gsc, min(m, n_groups))            # [B,M]
-    sel_valid = top_sc > NEG / 2
+    return scores[:, : (n // g) * g].reshape(b, n // g, g).amax(dim=-1)
 
-    tok_idx = (gids[..., None] * g + torch.arange(g, device=q.device)).reshape(b, -1)  # [B,M*G]
+
+def _selected_tokens(gsc, flushed: int, scfg: KVSwapServeConfig):
+    """The top-M groups of ``gsc [B, n_groups]`` → their tokens ``[B, M·G]``
+    and the tokens' mask (inside the flushed prefix, a valid selection)."""
+    b = gsc.shape[0]
+    g = scfg.group_size
+    top_sc, gids = _top_groups(gsc, min(scfg.n_select, gsc.shape[1]))  # [B,M]
+    sel_valid = top_sc > NEG / 2
+    tok_idx = (gids[..., None] * g + torch.arange(g, device=gsc.device)).reshape(b, -1)
+    tok_mask = (tok_idx < flushed) & torch.repeat_interleave(sel_valid, g, dim=-1)
+    return tok_idx, tok_mask
+
+
+def _attend_selected(q, ent, tok_idx, tok_mask, length: int, k_new, v_new,
+                     scfg: KVSwapServeConfig, main_len: int | None):
+    """Decode attention of ``q`` over the selected tokens of ``ent`` (plus
+    the rolling buffer when ``main_len`` is given) and the new token."""
+    b = q.shape[0]
     rows = torch.arange(b, device=q.device)[:, None]
     k_sel, v_sel = ent["k"][rows, tok_idx], ent["v"][rows, tok_idx]
-    tok_mask = (tok_idx < flushed) & torch.repeat_interleave(sel_valid, g, dim=-1)
     if main_len is not None:
         rb_mask = (torch.arange(scfg.rb_len, device=q.device) < length - main_len)
         k_sel = torch.cat([k_sel, ent["rb_k"]], dim=1)
@@ -216,6 +233,39 @@ def _kvswap_decode_attn(q, ent, adapter, length: int, k_new, v_new, scfg: KVSwap
 # --------------------------------------------------------------------------
 
 
+def _write_prompt_kv(ent: dict, k: torch.Tensor, v: torch.Tensor, adapter, s: int) -> None:
+    """``k/v [B, S, Hk, d]`` (and ``k_lr`` through ``adapter``) into the
+    cache entry at ``[:, :S]``, in place."""
+    b = k.shape[0]
+    ent["k"][:, :s] = k
+    ent["v"][:, :s] = v
+    if adapter is not None:
+        ent["k_lr"][:, :s] = k.reshape(b, s, -1) @ adapter
+
+
+def _cache_layout(ent: dict):
+    """``(placements of each cache tensor, batch axes, sequence axes)`` of a
+    cache entry of DTensors: the mesh axes that split its batch and its
+    sequence dim."""
+    from torch.distributed.tensor import Shard
+
+    pl = {key: t.placements for key, t in ent.items()}
+    names = ent["k"].device_mesh.mesh_dim_names
+    on = lambda dim: tuple(n for n, p in zip(names, pl["k"]) if isinstance(p, Shard)
+                           and p.dim == dim) or None
+    return pl, on(0), on(1)
+
+
+def _write_prompt(ent: dict, k, v, adapter, s: int) -> None:
+    """:func:`_write_prompt_kv` on each rank's shard of a DTensor cache (the
+    prompt's K and V brought to the cache's layout first)."""
+    def layout(mesh):
+        pl, dp, _ = _cache_layout(ent)
+        return [pl, pl["k"], pl["v"], P()], [None], {}
+
+    local_region(functools.partial(_write_prompt_kv, s=s), (ent, k, v, adapter), layout)
+
+
 def prefill(params, cfg, tokens: torch.Tensor, cache: dict, *,
             kvswap: KVSwapServeConfig | None = None, enc_out: torch.Tensor | None = None):
     """Full attention over the prompt ``tokens [B, S]``, writing its KV (and
@@ -226,58 +276,179 @@ def prefill(params, cfg, tokens: torch.Tensor, cache: dict, *,
     positions = torch.arange(s, device=tokens.device)[None, :].repeat(b, 1)
     whisper = _is_whisper(cfg)
     if whisper:
-        x = params["embed"][tokens] + W.sinusoid_positions(positions, cfg.d_model)
+        pe = W.sinusoid_positions(positions, cfg.d_model).to(params["embed"].dtype)
+        x = rows(L.embed_lookup(params["embed"], tokens) + pe)
         ckv = W.cross_kv(params, cfg, enc_out)
     else:
-        x = params["embed"][tokens]
+        x = rows(L.embed_lookup(params["embed"], tokens))
     layers = cache["layers"]
     kv_idx = 0
     for i, kind in enumerate(_blocks(cfg)):
         if kind in ATTN_KINDS:
             if whisper:
                 blk = params["dec_blocks"][i]
-                q, k, v = W._proj_qkv(blk["attn"], L.layernorm(blk["ln1"], x), cfg)
-                o = L.causal_attention(q, k, v)
-                x = x + o.reshape(b, s, -1) @ blk["attn"]["wo"]
+                o, k, v = L.attention(blk["attn"], L.layernorm(blk["ln1"], x), None,
+                                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                                      head_dim=cfg.head_dim, attend=L.causal_attention)
+                x = x + like(L.linear_rows(o, blk["attn"]["wo"]), x)
                 x = W.cross_and_mlp(blk, cfg, x, *ckv[i])
             else:
                 x, _, (k, v) = T.block_forward(params, cfg, i, x, positions, return_kv=True)
-            ent = layers[i]
-            ent["k"][:, :s] = k
-            ent["v"][:, :s] = v
-            if kvswap is not None:
-                ent["k_lr"][:, :s] = k.reshape(b, s, -1) @ params["kvswap_adapters"][kv_idx]
+            adapter = params["kvswap_adapters"][kv_idx] if kvswap is not None else None
+            _write_prompt(layers[i], k, v, adapter, s)
             kv_idx += 1
         else:
             x, _, layers[i] = T.block_forward(params, cfg, i, x, positions, layers[i])
     if whisper:
-        logits = L.layernorm(params["final_norm"], x)[:, -1] @ params["embed"].T
+        logits = L.linear_cols(L.layernorm(params["final_norm"], x)[:, -1], params["embed"].T)
     else:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = L.rmsnorm(params["final_norm"], x)[:, -1] @ head
+        logits = L.linear_cols(L.rmsnorm(params["final_norm"], x)[:, -1], head)
     cache["length"] = s
     if kvswap is not None and kvswap.rolling:
         cache["main_len"] = s          # the whole prompt lives in the main cache
     return logits, cache
 
 
+def _seq_shard_attn(q, q_pred, ent, adapter, length: int, k_new, v_new, *, scfg, n_kv_heads,
+                    main_len, start: int, owner: bool, groups):
+    """Decode attention over a cache whose sequence is split over ``groups``
+    (mesh dims, major to minor), this rank holding ``[start, start +
+    n_loc)``: the same selection as on one device (Eq. 1 group scores of
+    every shard gathered, the global top M), each rank's partial
+    flash-decode over its selected tokens (the rolling buffer and the new
+    token on the ``owner``, which holds position ``length``), combined by
+    :func:`repro_torch.serving.distributed.combine`."""
+    from torch.distributed import _functional_collectives as funcol
+
+    b, n_loc = ent["k"].shape[:2]
+    if scfg is None:                        # full: every token of the shard
+        k_sel, v_sel = ent["k"], ent["v"]
+        mask = ((torch.arange(n_loc, device=q.device) + start) < length)[None].expand(b, -1)
+    else:
+        flushed = length if main_len is None else main_len
+        gsc = _group_scores(q_pred, ent["k_lr"], adapter, flushed, scfg, n_kv_heads, start)
+        for g in reversed(groups):          # minor axis first: shards in order
+            gsc = funcol.all_gather_tensor(gsc, 1, g)
+        tok_idx, tok_mask = _selected_tokens(gsc, flushed, scfg)
+        mine = (tok_idx >= start) & (tok_idx < start + n_loc)
+        idx, mask = (tok_idx - start).clamp(0, n_loc - 1), tok_mask & mine
+        rows = torch.arange(b, device=q.device)[:, None]
+        k_sel, v_sel = ent["k"][rows, idx], ent["v"][rows, idx]
+    if main_len is not None:
+        rb_mask = (torch.arange(scfg.rb_len, device=q.device) < length - main_len) & owner
+        k_sel = torch.cat([k_sel, ent["rb_k"]], dim=1)
+        v_sel = torch.cat([v_sel, ent["rb_v"]], dim=1)
+        mask = torch.cat([mask, rb_mask[None, :].expand(b, -1)], dim=1)
+    parts = shard_partial(q, k_sel, v_sel, mask, k_new, v_new, is_last=owner)
+    return combine(*parts, [mesh.get_group(d) for mesh, d in groups]).to(q.dtype)
+
+
+def _decode_attn_layer(qf, kf, vf, pos, norms, ent, adapter, qpf, *, length: int, main_len,
+                       scfg, n_kv_heads: int, head_dim: int, rope_theta, qk_norm: bool,
+                       h0: int = 0, hl: int | None = None, seq: dict | None = None):
+    """One attention layer of :func:`serve_step` from the flat projections
+    ``qf [B, H·d]``, ``kf/vf [B, Hk·d]`` (and ``qpf``, the prediction
+    source's, or ``None``): heads, qk-norm and RoPE at ``pos``, attention
+    over the cache entry ``ent`` (``full`` or ``kvswap``), and the new
+    token's K/V written into ``ent`` in place → ``o [B, Hq·d]``.
+
+    On a rank's shard (:func:`serve_step` on DTensors): ``ent`` holds its
+    batch rows (or its slice of the sequence, ``seq``) with every KV head,
+    the selection scores every head, and attention runs over the query
+    heads ``[h0, h0 + hl)`` only."""
+    b = qf.shape[0]
+    q, k_new, v_new = (t.reshape(b, -1, head_dim) for t in (qf, kf, vf))
+    rope = lambda t: L.apply_rope(t[:, None], pos[:, None], rope_theta)[:, 0]
+    if qk_norm:
+        q = L.rmsnorm(norms["q_norm"], q)
+        k_new = L.rmsnorm(norms["k_norm"], k_new)
+    if rope_theta is not None:
+        q, k_new = rope(q), rope(k_new)
+    q_pred = q
+    if qpf is not None:                     # §3.3: score from the previous block's input
+        q_pred = qpf.reshape(b, -1, head_dim)
+        if qk_norm:
+            q_pred = L.rmsnorm(norms["q_norm"], q_pred)
+        if rope_theta is not None:
+            q_pred = rope(q_pred)
+    rolling = scfg is not None and scfg.rolling
+    q_at, ent_at, kn_at, vn_at = q, ent, k_new, v_new
+    if hl is not None and hl < q.shape[1]:  # this rank's query heads and their KV heads
+        rep = q.shape[1] // k_new.shape[1]
+        heads = lambda t: L.local_kv_heads(t, h0, hl, rep)
+        q_at = q[:, h0:h0 + hl]
+        ent_at = {key: heads(t) if key != "k_lr" else t for key, t in ent.items()}
+        kn_at, vn_at = heads(k_new), heads(v_new)
+    if seq is not None:
+        o = _seq_shard_attn(q_at, q_pred, ent_at, adapter, length, kn_at, vn_at, scfg=scfg,
+                            n_kv_heads=n_kv_heads, main_len=main_len if rolling else None,
+                            **seq)
+    elif scfg is not None:
+        flushed = main_len if rolling else length
+        gsc = _group_scores(q_pred, ent["k_lr"], adapter, flushed, scfg, n_kv_heads)
+        tok_idx, tok_mask = _selected_tokens(gsc, flushed, scfg)
+        o = _attend_selected(q_at, ent_at, tok_idx, tok_mask, length, kn_at, vn_at, scfg,
+                             main_len if rolling else None)
+    else:
+        o = _full_decode_attn(q_at, ent_at, length, kn_at, vn_at)
+    # append the new token's KV, in place
+    start = 0 if seq is None else seq["start"]
+    if rolling:
+        ent["rb_k"][:, length - main_len] = k_new
+        ent["rb_v"][:, length - main_len] = v_new
+    elif seq is None or seq["owner"]:
+        ent["k"][:, length - start] = k_new
+        ent["v"][:, length - start] = v_new
+        if scfg is not None:
+            ent["k_lr"][:, length - start] = (k_new.reshape(b, 1, -1) @ adapter)[:, 0]
+    return o.reshape(b, -1)
+
+
+def _decode_attn(qf, kf, vf, pos, norms, ent, adapter, qpf, *, n_heads: int, **kw):
+    """:func:`_decode_attn_layer`, on each rank's shard for a DTensor cache:
+    rows over the cache's batch axes, every projection whole over
+    ``model`` (the cache keeps every KV head, and the selection scores
+    every query head), attention over this rank's query heads where
+    ``model`` splits them, and a sequence split combined across ranks."""
+    n_kv = kw["n_kv_heads"]
+
+    def layout(mesh):
+        pl, dp, seq_axes = _cache_layout(ent)
+        _, hq, _, h0 = L.head_layout(mesh, qf.shape[0], n_heads, n_kv)
+        if seq_axes is not None and "model" in seq_axes:
+            hq, h0 = None, 0
+        kwargs = {"h0": h0, "hl": n_heads // axis_size(mesh, hq)}
+        if seq_axes is not None:
+            n_loc = ent["k"].shape[1] // axis_size(mesh, seq_axes)
+            start = axis_index(mesh, seq_axes) * n_loc
+            kwargs["seq"] = {"start": start, "owner": start <= kw["length"] < start + n_loc,
+                             "groups": [(mesh, mesh.mesh_dim_names.index(a)) for a in seq_axes]}
+        row = P(dp)
+        return [row, row, row, row, P(), pl, P(), row], P(dp, hq), kwargs
+
+    return local_region(functools.partial(_decode_attn_layer, **kw),
+                        (qf, kf, vf, pos, norms, ent, adapter, qpf), layout)
+
+
 def serve_step(params, cfg, tokens: torch.Tensor, cache: dict, *,
                kvswap: KVSwapServeConfig | None = None, enc_out: torch.Tensor | None = None):
     """One decode step: ``tokens [B, 1]`` → ``(logits [B, V], cache)``.  The
     new token's KV goes into the cache in place (at ``[:, length]``, or into
-    the rolling buffer), and ``length`` grows by one."""
+    the rolling buffer), and ``length`` grows by one.  On DTensors each
+    attention layer runs on each rank's shard (:func:`_decode_attn`)."""
     b = tokens.shape[0]
     length = cache["length"]
     main_len = cache.get("main_len")
     pos = torch.full((b,), length, dtype=torch.int32, device=tokens.device)
     whisper = _is_whisper(cfg)
     if whisper:
-        x = params["embed"][tokens[:, 0]] + W.sinusoid_positions(pos, cfg.d_model)
+        pe = W.sinusoid_positions(pos, cfg.d_model).to(params["embed"].dtype)
+        x = rows(L.embed_lookup(params["embed"], tokens[:, 0]) + pe)
         ckv = W.cross_kv(params, cfg, enc_out)
     else:
-        x = params["embed"][tokens[:, 0]]
+        x = rows(L.embed_lookup(params["embed"], tokens[:, 0]))
     layers = cache["layers"]
-    rolling = kvswap is not None and kvswap.rolling
     kv_idx = 0
     x_prev = x   # input to the previous block (cross-layer prediction source)
     for i, kind in enumerate(_blocks(cfg)):
@@ -290,54 +461,26 @@ def serve_step(params, cfg, tokens: torch.Tensor, cache: dict, *,
             else:
                 nb, attn_p, mlp_holder = T._attn_params(params, cfg, i)
                 nb_norm = lambda t, nb=nb: L.rmsnorm(nb["attn_norm"], t)
-
-            def _q_of(t):
-                """Layer i's query projection of an arbitrary residual input."""
-                qq = (nb_norm(t) @ attn_p["wq"]).reshape(b, cfg.n_heads, cfg.head_dim)
-                if not whisper:
-                    if cfg.qk_norm:
-                        qq = L.rmsnorm(attn_p["q_norm"], qq)
-                    qq = L.apply_rope(qq[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-                return qq
-
+            qk_norm = not whisper and cfg.qk_norm
             h = nb_norm(x)
-            q = (h @ attn_p["wq"]).reshape(b, cfg.n_heads, cfg.head_dim)
-            k_new = (h @ attn_p["wk"]).reshape(b, cfg.n_kv_heads, cfg.head_dim)
-            v_new = (h @ attn_p["wv"]).reshape(b, cfg.n_kv_heads, cfg.head_dim)
-            if not whisper:
-                if cfg.qk_norm:
-                    q = L.rmsnorm(attn_p["q_norm"], q)
-                    k_new = L.rmsnorm(attn_p["k_norm"], k_new)
-                q = L.apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-                k_new = L.apply_rope(k_new[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-            ent = layers[i]
-            if kvswap is not None:
-                # §3.3: score from the previous block's input
-                q_pred = _q_of(x_prev) if kvswap.predict_from == "prev" and i > 0 else None
-                o = _kvswap_decode_attn(q, ent, params["kvswap_adapters"][kv_idx], length,
-                                        k_new, v_new, kvswap, cfg.n_kv_heads,
-                                        main_len=main_len if rolling else None, q_pred=q_pred)
-            else:
-                o = _full_decode_attn(q, ent, length, k_new, v_new)
-            x = x + o.reshape(b, -1) @ attn_p["wo"]
-            # append the new token's KV, in place
-            if rolling:
-                ent["rb_k"][:, length - main_len] = k_new
-                ent["rb_v"][:, length - main_len] = v_new
-            else:
-                ent["k"][:, length] = k_new
-                ent["v"][:, length] = v_new
-                if kvswap is not None:
-                    ent["k_lr"][:, length] = (k_new.reshape(b, 1, -1)
-                                              @ params["kvswap_adapters"][kv_idx])[:, 0]
+            qf, kf, vf = (L.linear_cols(h, attn_p[w]) for w in ("wq", "wk", "wv"))
+            predict_prev = kvswap is not None and kvswap.predict_from == "prev" and i > 0
+            o = _decode_attn(
+                qf, kf, vf, pos, {k: attn_p[k] for k in ("q_norm", "k_norm") if qk_norm},
+                layers[i], params["kvswap_adapters"][kv_idx] if kvswap is not None else None,
+                L.linear_cols(nb_norm(x_prev), attn_p["wq"]) if predict_prev else None,
+                n_heads=cfg.n_heads, length=length, main_len=main_len, scfg=kvswap,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                rope_theta=None if whisper else cfg.rope_theta, qk_norm=qk_norm)
+            x = x + like(L.linear_rows(o, attn_p["wo"]), x)
             if whisper:
                 x = W.cross_and_mlp(params["dec_blocks"][i], cfg, x, *ckv[i])
             else:
                 h2 = L.rmsnorm(mlp_holder["mlp_norm"], x)
                 if kind == "moe_attn":    # one token a row, routed as a call of S = 1
-                    x = x + T._ffn(params, cfg, i, mlp_holder, h2[:, None])[0][:, 0]
+                    x = x + like(T._ffn(params, cfg, i, mlp_holder, h2[:, None])[0][:, 0], x)
                 else:
-                    x = x + L.swiglu(mlp_holder["mlp"], h2)
+                    x = x + like(L.swiglu(mlp_holder["mlp"], h2), x)
             kv_idx += 1
         else:
             blk = params["blocks"][i]
@@ -348,13 +491,13 @@ def serve_step(params, cfg, tokens: torch.Tensor, cache: dict, *,
                 y, layers[i] = S.mlstm_step(blk["mlstm"], h, layers[i])
             else:
                 y, layers[i] = S.slstm_step(blk["slstm"], h, layers[i])
-            x = x + y
+            x = x + like(y, x)
         x_prev = x_in
     if whisper:
-        logits = L.layernorm(params["final_norm"], x) @ params["embed"].T
+        logits = L.linear_cols(L.layernorm(params["final_norm"], x), params["embed"].T)
     else:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = L.rmsnorm(params["final_norm"], x) @ head
+        logits = L.linear_cols(L.rmsnorm(params["final_norm"], x), head)
     cache["length"] = length + 1
     return logits, cache
 

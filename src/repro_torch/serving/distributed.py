@@ -93,13 +93,18 @@ def shard_partial(q, k_sel, v_sel, mask, k_new, v_new, *, is_last: bool):
 
 
 def combine(m_i, l_i, o_i, group) -> torch.Tensor:
-    """The flash-decoding combine over ``group``: one ``all_reduce`` MAX of
-    ``m [B, H]`` and one SUM of ``[o_i·w_i, w_i]`` (``[B, H, d + 1]``)."""
+    """The flash-decoding combine over ``group`` (a process group, or a
+    list of them when the shards lie over several mesh axes): an
+    ``all_reduce`` MAX of ``m [B, H]`` and a SUM of ``[o_i·w_i, w_i]``
+    (``[B, H, d + 1]``) over each."""
+    groups = group if isinstance(group, (list, tuple)) else [group]
     m = m_i.clone()
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
     w = l_i * torch.exp(m_i - m)
     acc = torch.cat([o_i * w[..., None], w[..., None]], dim=-1)
-    dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+    for g in groups:
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=g)
     return acc[..., :-1] / acc[..., -1:].clamp_min(1e-30)
 
 

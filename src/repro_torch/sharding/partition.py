@@ -18,11 +18,19 @@ a ``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh`
 on the others), and :func:`distribute_params` lays a param tree out over a
 mesh with ``distribute_tensor``.  Specs need no process group; placements
 and DTensors do.
+
+:func:`local_region` runs a function on each rank's shards (DTensor's
+``local_map``, the counterpart of JAX's ``shard_map``) where DTensor's
+sharding rules cannot take its ops; on plain tensors it runs the function
+itself, so the single-device path keeps its bits.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+
+import torch
 
 
 class P(tuple):
@@ -251,3 +259,160 @@ def constrain(x, spec: P):
     if not isinstance(x, DTensor):
         return x
     return x.redistribute(x.device_mesh, to_placements(x.device_mesh, spec))
+
+
+def mesh_of(tree):
+    """The device mesh of the first DTensor in ``tree`` (nested dicts, lists
+    and tuples), or ``None``: a plain tree costs a walk over its nodes."""
+    from torch.distributed.tensor import DTensor
+
+    def find(node):
+        if isinstance(node, DTensor):
+            return node.device_mesh
+        if isinstance(node, dict):
+            node = node.values()
+        elif not isinstance(node, (list, tuple)):
+            return None
+        return next((m for m in map(find, node) if m is not None), None)
+
+    return find(tree)
+
+
+def axis_size(mesh, names) -> int:
+    """The number of ranks along ``names`` (an axis name or a tuple of
+    them; ``None`` and axes the mesh lacks count 1)."""
+    if mesh is None or names is None:
+        return 1
+    sizes = _axis_sizes(mesh)
+    return math.prod(sizes.get(n, 1) for n in ((names,) if isinstance(names, str) else names))
+
+
+def axis_index(mesh, names) -> int:
+    """This rank's coordinate along ``names``, major to minor (0 off a mesh)."""
+    if mesh is None or names is None:
+        return 0
+    idx = 0
+    for n in ((names,) if isinstance(names, str) else names):
+        if n in mesh.mesh_dim_names:
+            idx = idx * mesh.size(mesh.mesh_dim_names.index(n)) + mesh.get_local_rank(n)
+    return idx
+
+
+def split_axes(mesh, names, n: int):
+    """``names`` where they split a dim of ``n`` evenly and more than one way,
+    else ``None`` (the dim stays whole on every rank)."""
+    k = axis_size(mesh, names)
+    return names if k > 1 and n % k == 0 else None
+
+
+def local_region(fn, args: tuple, layout):
+    """``fn(*args)`` on each rank's shards when ``args`` hold a DTensor.
+
+    ``layout(mesh)`` gives ``(in_specs, out_specs, kwargs)``.  ``in_specs``
+    has one entry per entry of ``args``: a :class:`P` or a tuple of DTensor
+    placements (for every tensor in the entry), or a dict of them for a
+    dict entry; non-tensors take none.  ``out_specs`` is a list, one entry
+    per tensor in ``fn``'s flattened result (``None`` for a non-tensor), or
+    one spec for a lone tensor; a tuple of placements may hold partial sums.
+    ``kwargs`` go to ``fn`` on this rank (its offsets).  Each input is
+    redistributed to its spec (a plain tensor counts as replicated), ``fn``
+    runs on the local tensors, and its outputs come back as DTensors of the
+    out specs (``local_map``).  Without a DTensor, ``fn(*args)`` runs as it
+    is, with its own defaults.
+
+    Gradients: an input whole over a mesh axis along which ``fn``'s outputs
+    are split (sharded or partial) gets its gradient as a partial sum over
+    that axis (each rank's share); over an axis where every output is whole
+    — every rank computes the same thing — its gradient is whole too.  A
+    4th entry of ``layout``'s result overrides which axes count as split.
+    """
+    mesh = mesh_of(args)
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils._pytree import tree_flatten, tree_unflatten as pt_unflatten
+
+    in_specs, out_specs, kwargs, *split = layout(mesh)
+    rep = (Replicate(),) * mesh.ndim
+    flat_args, in_pl = [], []
+    for arg, spec in zip(args, in_specs, strict=True):
+        leaves, tree = tree_flatten(arg)
+        specs = (tree_flatten({k: spec[k] for k in arg}, is_leaf=_is_spec)[0]
+                 if isinstance(spec, dict) else [spec] * len(leaves))
+        out = []
+        for leaf, sp in zip(leaves, specs, strict=True):
+            if isinstance(leaf, torch.Tensor):
+                if not isinstance(leaf, DTensor):
+                    leaf = DTensor.from_local(leaf, mesh, rep, run_check=False)
+                in_pl.append(_placements(mesh, sp))
+            else:
+                in_pl.append(None)
+            out.append(leaf)
+        flat_args.append(pt_unflatten(out, tree))
+    # local_map reads a tuple as one placement list per output, and a list
+    # as the placements of a lone output
+    outs = [_placements(mesh, s) for s in (out_specs if isinstance(out_specs, list)
+                                           else [out_specs])]
+    out_pl = tuple(outs) if isinstance(out_specs, list) else list(outs[0])
+    if split:
+        split_dims = {i for i, n in enumerate(mesh.mesh_dim_names)
+                      if n in (split[0] or ())}
+    else:
+        split_dims = {i for pl in outs if pl is not None for i, p in enumerate(pl)
+                      if not isinstance(p, Replicate)}
+    grad_pl = tuple(None if pl is None else tuple(
+        Partial() if isinstance(p, Replicate) and i in split_dims else p
+        for i, p in enumerate(pl)) for pl in in_pl)
+    return local_map(functools.partial(fn, **kwargs), out_placements=out_pl,
+                     in_placements=tuple(in_pl), in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*flat_args)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) or x is None
+
+
+def _placements(mesh, spec):
+    """A :class:`P` as placements over ``mesh``; placements as they are."""
+    from torch.distributed.tensor import Placement
+
+    if spec is None:
+        return None
+    if spec and all(isinstance(p, Placement) for p in spec):
+        return tuple(spec)
+    return to_placements(mesh, spec)
+
+
+def partial_placements(mesh, spec: P, axes) -> tuple:
+    """:func:`to_placements` of ``spec`` with each mesh axis in ``axes`` (a
+    name, a tuple of names or ``None``) a pending sum over its ranks
+    instead: a rank's output that is only its share of the whole."""
+    from torch.distributed.tensor import Partial
+
+    names = () if axes is None else ((axes,) if isinstance(axes, str) else tuple(axes))
+    return tuple(Partial() if n in names and mesh.size(i) > 1 else p
+                 for i, (n, p) in enumerate(zip(mesh.mesh_dim_names, to_placements(mesh, spec))))
+
+
+def rows(x):
+    """A DTensor activation laid out by rows: its first dim over the batch
+    axes where they divide it, whole on every other axis (the model's
+    residual stream); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, to_placements(mesh, P(split_axes(mesh, batch_axes(mesh),
+                                                                 x.shape[0]))))
+
+
+def like(y, x):
+    """DTensor ``y`` (a partial sum, say) brought to ``x``'s placements, so
+    that ``x + y`` keeps ``x``'s layout; a plain ``y`` as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(y, DTensor) or not isinstance(x, DTensor):
+        return y
+    return y.redistribute(x.device_mesh, x.placements)
