@@ -27,7 +27,9 @@
    tree's (A at ranks 64, 256 and 30, B at the serving and hybrid paths'
    shapes, C at the Zamba2 prefill's through ``SSDChunk``; bit-equal
    outputs required), and does the same for its MoE
-   layer at the OLMoE path's decode and prefill shapes; runs the tiny
+   layer at the OLMoE path's decode and prefill shapes and, in child
+   processes, for the device path's Zamba2-1.2B step and Llama-3.1-8B
+   ``kvswap`` step (8 layers); runs the tiny
    engine on the card and on the CPU
    and compares every group selection and token (the flipped selections,
    each with its score gaps);
@@ -137,9 +139,14 @@
    engine's host-gather route; kernels A and B once per layer per decode
    step), then the same weights through the device path (``kvswap``);
 14. xLSTM-1.3B at full width (48 blocks) through the device path, 4 x
-   1024 tokens, 32 new: no kernel launches; and two of its blocks (an
-   mLSTM and an sLSTM) whose prefill and steps must equal the
-   teacher-forced forward within 2e-4 of max(1, the largest |logit|);
+   1024 tokens, 32 new: no kernel launches (its prefill wall printed
+   beside the 21.5 s of the token loops it replaced); the chunkwise mLSTM
+   (``ssm.mlstm_forward``) against the token loop
+   (``ssm.mlstm_forward_tokens``) on its first mLSTM block at 4 x 1024
+   tokens, fp32: outputs and final ``(c, n, m)`` within rtol 1e-4, atol
+   1e-5, both timed with CUDA events; and two of its blocks (an mLSTM and
+   an sLSTM) whose prefill and steps must equal the teacher-forced
+   forward within 2e-4 of max(1, the largest |logit|);
 15. drives the sequence-sharded decode attention (``serving/distributed.py``)
    at the reference's long_500k shape at Llama-3.1-8B width (B 1, H 32,
    H_kv 8, d 128, N 524288, r 64, G 4, M 100, 500,000 tokens, one layer of
@@ -169,8 +176,10 @@
 17. runs the dry run (``repro_torch.launch.dryrun``) on this machine's
    torch: ``run_one`` over the fake 256-rank (16x16) world for
    Llama-3.1-8B and OLMoE-1B-7B at ``train_4k`` and ``decode_32k``,
-   Zamba2-1.2B, Whisper-large-v3 and xLSTM-1.3B at ``decode_32k``, and
-   Llama at ``long_500k`` over the 512-rank (2x16x16) one, in three child
+   Zamba2-1.2B, Whisper-large-v3 and xLSTM-1.3B at ``decode_32k``,
+   Zamba2-1.2B at ``prefill_32k`` (its mixer split over ``model`` by
+   heads), Llama-4 Maverick at ``long_500k`` (its FSDP experts met by the
+   row), and Llama at ``long_500k`` over the 512-rank (2x16x16) one, in three child
    processes at once (the fake default group never meets this process's
    NCCL groups); every combination must be ok, and each prints its FLOPs,
    bytes, collectives and memory.  Then the dry run of Llama-3.1-8B's
@@ -243,6 +252,8 @@ SERVED[TUNED] = dict(n_layers=4, slots=4, n_requests=6, prompt_len=(1024, 2048),
 ARCH_OF = {TUNED: LLAMA}
 # the full-cache device path (serving/decode.py) and the paths it serves
 WHISPER, XLSTM = "whisper-large-v3", "xlstm-1.3b"
+MAVERICK = "llama4-maverick-400b-a17b"        # in the dry run only (its experts: 64.4 GB a layer)
+XLSTM_LOOP_PREFILL_S = 21.5   # the token loops' prefill, H100 80GB HBM3 at 700 W (PERF.md §5)
 LLAMA_DEV, LLAMA_ROLL = "llama3-8b-device", "llama3-8b-device-rolling"
 ZAMBA_DEV, WHISPER_DEV = "zamba2-1.2b-device", "whisper-large-v3-device"
 DEVICE_RUN = dict(batch=4, prompt_len=2048, max_new=32, max_len=4096)
@@ -271,9 +282,14 @@ TRAIN_SSD = dict(b=2, nc=8, q=128, h=64, p=64, n=64)   # kernel C in its forward
 DRYRUN_CHILDREN = ([(LLAMA, "train_4k", False), (LLAMA, "decode_32k", False),
                     (LLAMA, "long_500k", True)],
                    [(OLMOE, "train_4k", False), (OLMOE, "decode_32k", False),
-                    (ZAMBA, "decode_32k", False)],
-                   [(WHISPER, "decode_32k", False), (XLSTM, "decode_32k", False)])
+                    (ZAMBA, "decode_32k", False), (MAVERICK, "long_500k", False)],
+                   [(WHISPER, "decode_32k", False), (XLSTM, "decode_32k", False),
+                    (ZAMBA, "prefill_32k", False)])
 DRYRUN_TIMEOUT = 300
+# --parent: the device-path steps of both trees, each in a child process
+PARENT_LLAMA_LAYERS = 8
+PARENT_STEP_TIMEOUT = 300
+PARENT_TURNS = "PTTPPTTP"
 # the dry run held against the card: Llama-3.1-8B's device-path step (B 4,
 # max_len 4096, KVSwapServeConfig(4, 100, 64), fp32, 32 layers; PERF.md §4)
 # at a cache holding 2048 tokens, counted at a world of one and run for real
@@ -815,6 +831,54 @@ def against_parent(ops, parent: Path, dev, card) -> None:
           flush=True)
     del args
     parent_moe(parent, dev, flush, card)
+    parent_steps(parent, card)
+
+
+def step_child(tree: str, out: str) -> None:
+    """One child of :func:`parent_steps`: the tree at ``tree`` (its own
+    ``src``) serves Zamba2-1.2B (38 blocks) and Llama-3.1-8B cut to
+    :data:`PARENT_LLAMA_LAYERS` layers through the device path
+    (``kvswap``, 4 x 2048 tokens, 16 new); their prefill walls and decode
+    step medians as JSON into ``out``."""
+    sys.path.insert(0, str(Path(tree) / "src"))
+    from repro_torch import main_path
+    from repro_torch.configs import registry
+    from repro_torch.serving.decode import KVSwapServeConfig
+
+    dev = torch.device("cuda")
+    res = {}
+    for name, arch, n_layers in ((ZAMBA_DEV, ZAMBA, None), (LLAMA_DEV, LLAMA, PARENT_LLAMA_LAYERS)):
+        run = main_path.run_device_path(registry.get(arch), "kvswap", device=dev, n_layers=n_layers,
+                                        serve_cfg=KVSwapServeConfig(*DEVICE_KVSWAP), batch=4,
+                                        prompt_len=2048, max_new=32, max_len=4096)
+        res[name] = {"step_ms": statistics.median(run["decode_step_wall_seconds"]) * 1e3,
+                     "prefill_ms": run["prefill_seconds"] * 1e3}
+        del run
+        free_device()
+    Path(out).write_text(json.dumps(res))
+
+
+def parent_steps(parent: Path, card) -> None:
+    """The device path's Zamba2 step and Llama ``kvswap`` step of the tree at
+    ``parent`` and of this one, each tree in a child process of its own
+    (:func:`step_child`), in turns (:data:`PARENT_TURNS`): the host time
+    the model's regions add to the plain path shows here."""
+    walls = []
+    for i, tree in enumerate(parent if t == "P" else ROOT for t in PARENT_TURNS):
+        out = ROOT / "build" / "parent_steps" / f"turn{i}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--step-child",
+                              str(tree), "--out", str(out)], capture_output=True, text=True,
+                             timeout=PARENT_STEP_TIMEOUT)
+        check(run.returncode == 0, f"the device-step child of {tree} failed:\n"
+                                   f"{run.stdout[-2000:]}{run.stderr[-3000:]}")
+        walls.append(json.loads(out.read_text()))
+    for name in (ZAMBA_DEV, LLAMA_DEV):
+        steps = ", ".join(f"{w[name]['step_ms']:.2f}" for w in walls)
+        pre = ", ".join(f"{w[name]['prefill_ms']:.1f}" for w in walls)
+        print(f"{name} device path against the parent tree, in turns ({PARENT_TURNS}: P the "
+              f"parent, T this tree): decode step median {steps} ms; prefill {pre} ms  [{card}]",
+              flush=True)
 
 
 def parent_moe(parent: Path, dev, flush, card) -> None:
@@ -1643,8 +1707,27 @@ def xlstm_phase(main_path, registry, dev, card) -> None:
     print(f"{XLSTM}: {cfg.n_layers} blocks ({cfg.blocks.count('mlstm')} mLSTM, "
           f"{cfg.blocks.count('slstm')} sLSTM), d_model {cfg.d_model}, {cfg.n_heads} heads, "
           f"{cfg.param_count() / 1e9:.3f} B parameters  [{card}]", flush=True)
-    device_run(main_path, f"{XLSTM} device path", cfg, "full", params, dev, card, run=XLSTM_RUN,
-               expect={})
+    full = device_run(main_path, f"{XLSTM} device path", cfg, "full", params, dev, card,
+                      run=XLSTM_RUN, expect={})
+    free_device()
+    from repro_torch.serving import decode as D
+
+    cache = D.init_cache(cfg, XLSTM_RUN["batch"], XLSTM_RUN["max_len"], device=dev)
+    prompts = torch.as_tensor(main_path.device_prompts(
+        cfg.vocab_size, batch=XLSTM_RUN["batch"], prompt_len=XLSTM_RUN["prompt_len"], seed=0),
+        device=dev)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    D.prefill(params, cfg, prompts, cache)
+    torch.cuda.synchronize(dev)
+    again = time.perf_counter() - t1
+    print(f"{XLSTM} device path: prefill of {XLSTM_RUN['batch']} x {XLSTM_RUN['prompt_len']} "
+          f"tokens (chunkwise mLSTM, fused sLSTM cell) {full['prefill_seconds']:.3f} s on its "
+          f"first call (one-time imports and lazy kernel loading in it), {again:.3f} s again; "
+          f"the token loops took {XLSTM_LOOP_PREFILL_S} s on a first call  [{card}]", flush=True)
+    del cache, prompts
+    free_device()
+    mlstm_check(params["blocks"][cfg.blocks.index("mlstm")]["mlstm"], cfg, dev, card)
     free_device()
     pick = [cfg.blocks.index("mlstm"), cfg.blocks.index("slstm")]
     cfg2 = dataclasses.replace(cfg, n_layers=2, block_pattern=("mlstm", "slstm"))
@@ -1663,6 +1746,34 @@ def xlstm_phase(main_path, registry, dev, card) -> None:
           f"forward: max abs logit diff {err:.3g} (largest |logit| {big:.3g})  [{card}]",
           flush=True)
     check(err <= 2e-4 * big, f"{XLSTM}, 2 blocks: steps differ from the forward by {err:.3g}")
+
+
+def mlstm_check(p, cfg, dev, card) -> None:
+    """One mLSTM block of xLSTM-1.3B at full width (4 heads of 512), 4 x
+    1024 seeded tokens, fp32: the chunkwise form against the token loop
+    (the reference's scan), outputs and final state within rtol 1e-4, atol
+    1e-5; each timed with CUDA events."""
+    from repro_torch.models import ssm as S
+
+    b, s = XLSTM_RUN["batch"], XLSTM_RUN["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        want_y, want_st = S.mlstm_forward_tokens(p, x)
+        got_y, got_st = S.mlstm_forward(p, x)
+    worst = []
+    for name, got, want in [("y", got_y, want_y)] + [(k, got_st[k], want_st[k]) for k in want_st]:
+        excess = float(((got - want).abs() - 1e-4 * want.abs()).max())
+        worst.append(f"{name} {float((got - want).abs().max()):.3g}")
+        check(excess <= 1e-5, f"{XLSTM} mLSTM: chunkwise {name} differs from the token loop by "
+                              f"{excess:.3g} past rtol 1e-4")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    with torch.no_grad():
+        loop_ms = device_ms(lambda: S.mlstm_forward_tokens(p, x), flush, reps=3)
+        chunk_ms = device_ms(lambda: S.mlstm_forward(p, x), flush, reps=10)
+    print(f"{XLSTM} mLSTM block ({cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, {b} x {s} "
+          f"tokens, fp32): chunkwise against the token loop, max abs diff {', '.join(worst)}; "
+          f"chunkwise {chunk_ms:.2f} ms, token loop {loop_ms:.2f} ms  [{card}]", flush=True)
 
 
 def scale_entries(ops, select_groups, dev) -> list[dict]:
@@ -2040,13 +2151,18 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of another tree: its kernels A, B and C and its MoE "
-                         "layer are timed in turns with this tree's")
+                    help="a checkout of another tree: its kernels A, B and C, its MoE "
+                         "layer and its Zamba2 and Llama device-path steps are timed in "
+                         "turns with this tree's")
     ap.add_argument("--dryrun-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--step-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dryrun_child is not None:
         dryrun_child(args.dryrun_child, args.out)
+        return
+    if args.step_child is not None:
+        step_child(args.step_child, args.out)
         return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")

@@ -91,12 +91,14 @@ SERVE_KVSWAP = KVSwapServeConfig(group_size=4, n_select=100, rank=64)
 # of one CPU core is reported ``not run`` instead of traced.
 BUDGET_S = 900.0
 
-# Seconds one token of an xLSTM block's scan takes to trace (fake tensors,
-# one Python step per token), by step kind and block — measured on one CPU
-# core at xLSTM-1.3B's width, 64 tokens a block.  The scan is the only part
-# whose cost grows with a Python loop over tokens.
-XLSTM_TOKEN_S = {"train": {"mlstm": 0.13, "slstm": 0.07},
-                 "prefill": {"mlstm": 0.039, "slstm": 0.024}}
+# Seconds a token of an xLSTM block adds to a traced step, by step kind and
+# block: the sLSTM's token loop (one fused cell a token) and the mLSTM's
+# chunk loop (one carry a chunk of 64).  The marginal cost of a step of 4
+# blocks of one kind at 256 → 512 (train) and 1,024 → 2,048 tokens
+# (prefill), at xLSTM-1.3B's width on a 16x16 fake world, on one shared CPU
+# core.  The scans are the only parts whose trace grows with a Python loop.
+XLSTM_TOKEN_S = {"train": {"mlstm": 0.00011, "slstm": 0.0053},
+                 "prefill": {"mlstm": 0.000013, "slstm": 0.0015}}
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +343,8 @@ _COLL_KINDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
                ("reduce_scatter", "reduce-scatter"), ("all_reduce", "all-reduce"),
                ("allreduce", "all-reduce"), ("all_to_all", "all-to-all"),
                ("alltoall", "all-to-all"), ("permute", "collective-permute"))
-_COMM_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d", "_dtensor")
+_COMM_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd", "c10d_functional", "c10d",
+                    "_dtensor")
 
 
 def _collective_kind(func) -> str | None:
@@ -405,8 +408,8 @@ class LocalCounter:
     def _record(self, func, args, kwargs, out) -> None:
         from torch.utils.flop_counter import flop_registry
 
-        ins = [t for t in _leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
-        outs = [t for t in _leaves(out) if isinstance(t, torch.Tensor)]
+        ins = _tensors((args, kwargs))
+        outs = _tensors(out)
         kind = _collective_kind(func)
         if kind is not None:
             if kind and ins:
@@ -438,10 +441,21 @@ class LocalCounter:
         return out
 
 
-def _leaves(tree):
-    from torch.utils._pytree import tree_leaves as pt_leaves
-
-    return pt_leaves(tree)
+def _tensors(tree, out: list | None = None) -> list:
+    """The tensors in an op's arguments or result (nested lists, tuples and
+    dicts), in order.  A plain recursion: a closure that calls itself would
+    be a reference cycle, and keep every tensor it saw alive until the
+    collector runs."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
 
 
 def _local_tensors(tree):
@@ -488,7 +502,7 @@ class _CountingMode(TorchDispatchMode):
         from torch.utils.flop_counter import flop_registry
 
         kwargs = kwargs or {}
-        if any(isinstance(t, DTensor) for t in _leaves((args, kwargs))):
+        if DTensor in types or any(isinstance(t, DTensor) for t in _tensors((args, kwargs))):
             return NotImplemented
         if self.counter._quiet or func in self.skip:
             return func(*args, **kwargs)
@@ -648,10 +662,10 @@ def run_one(arch_id: str, shape_name: str, *, multi_pod: bool = False,
                        mesh="2x16x16" if multi_pod else "16x16", kvswap=kvswap)
     est = scan_seconds(cfg, shape)
     if est > BUDGET_S:
-        res.error = (f"not run: the xLSTM scan is a Python loop over {shape.seq_len} tokens "
-                     f"in each of its {sum(k in XLSTM_TOKEN_S['train'] for k in cfg.blocks)} "
-                     f"blocks; tracing it would take about {est:.0f} s, over the "
-                     f"{BUDGET_S:.0f} s budget")
+        res.error = (f"not run: tracing the xLSTM scans over {shape.seq_len} tokens (a token "
+                     f"loop in each of its {cfg.blocks.count('slstm')} sLSTM blocks, a chunk "
+                     f"loop in each of its {cfg.blocks.count('mlstm')} mLSTM blocks) would take "
+                     f"about {est:.0f} s, over the {BUDGET_S:.0f} s budget")
         if verbose:
             print(f"[FAIL] {arch_id} × {shape_name} × {res.mesh}: {res.error}", flush=True)
         return res
@@ -718,7 +732,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--no-donate", action="store_true",
                     help="clone the state inside the step instead of updating it in place")
     ap.add_argument("--no-moe-pspecs", action="store_true",
-                    help="disable MoE dispatch sharding constraints")
+                    help="disable the MoE dispatch's sharding hooks: the expert buffer's "
+                         "layout between dispatch, experts and combine ('buf'), and the "
+                         "routed output's ('y')")
     ap.add_argument("--opt", action="store_true",
                     help="beyond-paper decode optimizations: seq-over-model "
                          "cache sharding + device rolling buffer (§Perf)")

@@ -28,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.sharding.partition import (P, axis_index, axis_size, batch_axes, constrain,
-                                            local_region, partial_placements, split_axes)
+                                            local_region, mesh_of, partial_placements, shard_dim,
+                                            split_axes, sum_over)
 
 # --------------------------------------------------------------------------
 # norms
@@ -110,17 +111,37 @@ def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor, *, v0: int | None = N
     return embed[local.clamp(0, embed.shape[0] - 1)] * mine[..., None].to(embed.dtype)
 
 
+def moves_activations(mesh, tokens: int, w: torch.Tensor, w_dim: int, moved: int) -> bool:
+    """Whether a product of ``tokens`` rows with FSDP weight ``w`` (dim
+    ``w_dim`` split over ``data``) should bring the rows to the weight's
+    shards instead of gathering the weight: when the ``moved`` elements a
+    token sends (its slice in, its partial sum out) for every token are
+    fewer than the elements of ``w``'s local shard (a decode step)."""
+    return (shard_dim(w, "data") == w_dim
+            and tokens * moved < w.numel() // (axis_size(mesh, "data")
+                                                * axis_size(mesh, "model")))
+
+
 def linear_cols(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w``; on DTensors a column-parallel product on each rank's
     shard: ``x``'s rows over the batch axes and whole over ``model``, ``w
     [in, out]`` whole but for its output columns over ``model`` (where they
     divide) — a weight split over ``data`` (FSDP) is gathered first — and
-    the output's last dim over ``model``."""
+    the output's last dim over ``model``.  For a few tokens
+    (:func:`moves_activations`) the FSDP weight stays where it is: the rows
+    come whole to every rank, split along ``in`` as ``w`` is, and the
+    output is a partial sum over ``data``."""
 
     def layout(mesh):
         dp = split_axes(mesh, batch_axes(mesh), x.shape[0])
         m = split_axes(mesh, "model", w.shape[-1])
-        return [P(dp), P(None, m)], P(dp, *[None] * (x.dim() - 2), m), {}
+        lead = [None] * (x.dim() - 1)
+        tokens, (n_in, n_out) = x.numel() // x.shape[-1], w.shape
+        if moves_activations(mesh, tokens, w, 0, n_in // axis_size(mesh, "data")
+                             + n_out // axis_size(mesh, m)):
+            return ([P(*lead, "data"), P("data", m)],
+                    partial_placements(mesh, P(*lead, m), "data"), {})
+        return [P(dp), P(None, m)], P(dp, *lead[1:], m), {}
 
     return local_region(torch.matmul, (x, w), layout)
 
@@ -128,13 +149,20 @@ def linear_cols(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def linear_rows(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``h @ w``; on DTensors a row-parallel product on each rank's shard:
     ``h``'s last dim and ``w``'s input rows over ``model`` (where they
-    divide), the output a partial sum over ``model``."""
+    divide), the output a partial sum over ``model``.  For a few tokens an
+    FSDP weight's ``data`` split of its output columns stays, and the rows
+    come whole (:func:`linear_cols`)."""
 
     def layout(mesh):
         dp = split_axes(mesh, batch_axes(mesh), h.shape[0])
         m = split_axes(mesh, "model", w.shape[0])
-        return ([P(dp, *[None] * (h.dim() - 2), m), P(m, None)],
-                partial_placements(mesh, P(dp), m), {})
+        lead = [None] * (h.dim() - 1)
+        tokens, (n_in, n_out) = h.numel() // h.shape[-1], w.shape
+        if moves_activations(mesh, tokens, w, 1, n_in // axis_size(mesh, m)
+                             + n_out // axis_size(mesh, "data")):
+            return ([P(*lead, m), P(m, "data")],
+                    partial_placements(mesh, P(*lead, "data"), m), {})
+        return ([P(dp, *lead[1:], m), P(m, None)], partial_placements(mesh, P(dp), m), {})
 
     return local_region(torch.matmul, (h, w), layout)
 
@@ -201,14 +229,45 @@ def local_kv_heads(k: torch.Tensor, h0: int, hl: int, rep: int) -> torch.Tensor:
     return k[..., first:first + max(1, hl // rep), :]
 
 
+def column_layout(mesh, n_heads: int, head_dim: int):
+    """``(c0, cl)``, the columns ``[c0, c0 + cl)`` of the flat attention
+    output ``[..., H·d]`` that this rank's ``wo`` rows take, where the query
+    heads do not split over ``model`` but their columns do (Whisper's 20
+    heads, Maverick's 40 over 16); ``None`` otherwise."""
+    m = axis_size(mesh, "model")
+    if split_axes(mesh, "model", n_heads) is not None or m == 1 or (n_heads * head_dim) % m:
+        return None
+    cl = n_heads * head_dim // m
+    return axis_index(mesh, "model") * cl, cl
+
+
+def _column_heads(qf, cols: tuple, head_dim: int, rep: int):
+    """The query heads that cover columns ``cols = (c0, cl)`` of the flat
+    output → ``(qf [..., h·d]`` of those heads, the KV head of each of them,
+    the first column's place in them)."""
+    c0, cl = cols
+    h_lo, h_hi = c0 // head_dim, -(-(c0 + cl) // head_dim)
+    kv = torch.arange(h_lo, h_hi, device=qf.device) // rep
+    return qf[..., h_lo * head_dim:h_hi * head_dim], kv, c0 - h_lo * head_dim
+
+
 def _attention_local(qf, kf, vf, positions, norms, *, attend, head_dim: int, rope_theta,
-                     qk_norm: bool, rep: int, kv_from: int | None = None):
+                     qk_norm: bool, rep: int, kv_from: int | None = None,
+                     cols: tuple | None = None):
     """One rank's attention over its heads: ``qf [B,S,Hl·d]``, ``kf/vf``
     its KV heads, or all of them when ``kv_from`` (its first query head)
-    is given → ``(o [B,S,Hl·d], k, v)``, ``k/v`` post-RoPE as given."""
+    is given → ``(o [B,S,Hl·d], k, v)``, ``k/v`` post-RoPE as given.  With
+    ``cols``, ``qf`` and ``kf/vf`` are whole and ``o`` is the columns
+    ``cols`` of the flat output (:func:`column_layout`): only the heads
+    that cover them are computed."""
+    if cols is not None:
+        qf, kv, off = _column_heads(qf, cols, head_dim, rep)
     q, k, v = split_heads(qf, kf, vf, positions, norms, head_dim=head_dim,
                           rope_theta=rope_theta, qk_norm=qk_norm)
     kq, vq = k, v
+    if cols is not None:
+        o = attend(q, k.index_select(-2, kv), v.index_select(-2, kv))
+        return o.reshape(*o.shape[:-2], -1)[..., off:off + cols[1]], k, v
     if kv_from is not None:
         kq = local_kv_heads(k, kv_from, q.shape[-2], rep)
         vq = local_kv_heads(v, kv_from, q.shape[-2], rep)
@@ -227,17 +286,21 @@ def attention(p, x: torch.Tensor, positions, *, n_heads: int, n_kv_heads: int, h
     (:func:`~repro_torch.sharding.partition.local_region`): batch over the
     batch axes, query heads over ``model`` where they divide
     (:func:`head_layout`); KV heads that do not divide arrive whole and
-    each rank attends with its query heads' group.
+    each rank attends with its query heads' group.  Query heads that do not
+    divide ``model`` arrive whole, and each rank attends with the heads
+    that cover its share of ``wo``'s rows (:func:`column_layout`): the
+    output comes back split over ``model`` by columns.
     """
     qf, kf, vf = (linear_cols(x, p[w]) for w in ("wq", "wk", "wv"))
     norms = {k: p[k] for k in ("q_norm", "k_norm") if qk_norm}
 
     def layout(mesh):
         dp, hq, hkv, h0 = head_layout(mesh, x.shape[0], n_heads, n_kv_heads)
+        cols = column_layout(mesh, n_heads, head_dim)
         kv = P(dp, None, hkv)
-        o, k4 = P(dp, None, hq), P(dp, None, hkv, None)
+        o, k4 = P(dp, None, "model" if cols else hq), P(dp, None, hkv, None)
         return ([P(dp, None, hq), kv, kv, P(dp, None), P()], [o, k4, k4],
-                {"kv_from": h0 if hq is not None and hkv is None else None})
+                {"kv_from": h0 if hq is not None and hkv is None else None, "cols": cols})
 
     return local_region(
         functools.partial(_attention_local, attend=attend, head_dim=head_dim,
@@ -266,7 +329,13 @@ def split_kv(kf: torch.Tensor, vf: torch.Tensor, *, n_heads: int, n_kv_heads: in
                                       v.reshape(*v.shape[:-1], -1, head_dim)), (kf, vf), layout)
 
 
-def _attend_local(qf, k, v, *, attend, rep: int, kv_from: int | None = None):
+def _attend_local(qf, k, v, *, attend, rep: int, kv_from: int | None = None,
+                  cols: tuple | None = None):
+    if cols is not None:
+        qf, kv, off = _column_heads(qf, cols, k.shape[-1], rep)
+        o = attend(qf.reshape(*qf.shape[:-1], -1, k.shape[-1]), k.index_select(-2, kv),
+                   v.index_select(-2, kv))
+        return o.reshape(*o.shape[:-2], -1)[..., off:off + cols[1]]
     q = qf.reshape(*qf.shape[:-1], -1, k.shape[-1])
     if kv_from is not None:
         k = local_kv_heads(k, kv_from, q.shape[-2], rep)
@@ -283,9 +352,10 @@ def attend_heads(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_heads:
 
     def layout(mesh):
         dp, hq, hkv, h0 = head_layout(mesh, qf.shape[0], n_heads, k.shape[2])
+        cols = column_layout(mesh, n_heads, k.shape[-1])
         kv = P(dp, None, hkv, None)
-        return ([P(dp, None, hq), kv, kv], P(dp, None, hq),
-                {"kv_from": h0 if hq is not None and hkv is None else None})
+        return ([P(dp, None, hq), kv, kv], P(dp, None, "model" if cols else hq),
+                {"kv_from": h0 if hq is not None and hkv is None else None, "cols": cols})
 
     return local_region(functools.partial(_attend_local, attend=attend,
                                           rep=n_heads // k.shape[2]), (qf, k, v), layout)
@@ -429,11 +499,14 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 # Optional sharding of the MoE dispatch, set by a launcher that runs the model
-# on DTensor params: ``{"buf": ..., "y": P(dp, None, None)}``.  ``y`` pins the
-# routed output's layout.  The expert buffer is built inside each rank's
-# region (rows over the batch axes, this rank's experts), so ``buf`` meets
-# only local tensors there and changes nothing.  Unset, or on plain tensors,
-# the hook does nothing.
+# on DTensor params: ``{"buf": ..., "y": ...}``, as the reference's.  With
+# ``buf`` set, the dispatch, the experts and the combine run as three
+# regions, and ``buf`` lays out the dispatch buffer between the first two
+# and the experts' output between the last two (the dry run's ``P(dp, None,
+# None, None)``: every expert whole on every rank, gathered once, so the
+# combine needs no sum over ``model``); ``y`` pins the routed output.
+# Unset, the routed experts run as one region whose output is a partial sum
+# over ``model``.  On plain tensors the hook does nothing.
 _MOE_PSPECS: dict | None = None
 
 
@@ -491,46 +564,109 @@ def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
 
     On DTensors the routing, dispatch and combine run on each rank's shard
     (:func:`~repro_torch.sharding.partition.local_region`): a rank routes
-    its batch rows over every expert, runs only its own experts (the
-    expert axis of ``w_gate/w_up/w_down`` lies over ``model``) and returns
-    its share of ``y`` as a partial sum over ``model``; the means of the
-    load-balance loss come back as partial sums of each rank's share.
+    its batch rows over every expert and runs only its own experts (the
+    expert axis of ``w_gate/w_up/w_down`` lies over ``model``).  Without the
+    ``buf`` hook (:func:`set_moe_pspecs`) one region returns each rank's
+    share of ``y`` as a partial sum over ``model``; with it the experts'
+    outputs are laid out by the hook before the combine.  For a few tokens
+    (:func:`moves_activations`) experts split over ``data`` (FSDP) stay
+    where they are: the rows come whole, each rank multiplies its slice of
+    ``D`` and of ``F``, and the partial products are summed over ``data``.
+    The means of the load-balance loss come back as partial sums of each
+    rank's share.
     """
-    e = p["router"].shape[1]
-
-    def layout(mesh):
-        dp = split_axes(mesh, batch_axes(mesh), x.shape[0])
-        ex = split_axes(mesh, "model", e)
-        w = P(ex, None, None)
-        # the loss statistics: each rank's 1/n share of their means, summed
-        # over the batch axes and ``model`` (a partial sum, not a partial
-        # mean: DTensor passes a partial output's gradient to each rank whole)
-        stat_axes = tuple(dp or ()) + ((ex,) if ex else ())
-        stat = partial_placements(mesh, P(), stat_axes)
-        return ([P(), w, w, w, P(dp, None, None)],
-                [partial_placements(mesh, P(dp, None, None), ex), stat, stat],
-                {"e0": axis_index(mesh, ex) * (e // axis_size(mesh, ex)),
-                 "shares": axis_size(mesh, stat_axes)})
-
-    y, me, ce = local_region(
-        functools.partial(_moe_routed, top_k=top_k, capacity_factor=capacity_factor),
-        (p["router"], p["w_gate"], p["w_up"], p["w_down"], x), layout)
+    if _MOE_PSPECS is not None and "buf" in _MOE_PSPECS and mesh_of(x) is not None:
+        y, me, ce = _moe_three_regions(p, x, top_k=top_k, capacity_factor=capacity_factor)
+    else:
+        y, me, ce = _moe_one_region(p, x, top_k=top_k, capacity_factor=capacity_factor)
     y = _moe_constrain("y", y)
     if "shared" in p:
         y = y + swiglu(p["shared"], x)
-    aux = e * torch.sum(me * ce)
+    aux = p["router"].shape[1] * torch.sum(me * ce)
     return y, aux
 
 
-def _moe_routed(router, w_gate, w_up, w_down, x: torch.Tensor, *, top_k: int,
-                capacity_factor: float, e0: int = 0, shares: int = 1):
-    """The routed experts of :func:`moe` over the experts ``[e0, e0 + El)``
-    that ``w_gate/w_up/w_down [El, ...]`` hold (all of them by default) →
-    ``(y [B, S, D], me [E], ce [E])``: ``y`` those experts' share of the
-    output, ``me`` and ``ce`` the mean router probability and the routed
-    fraction of each expert over the rows."""
+def _moe_stats(mesh, *axes):
+    """The loss statistics' placements and ``shares``: each rank's 1/n
+    share of their means, summed over the axes that split the work (a
+    partial sum, not a partial mean: DTensor passes a partial output's
+    gradient to each rank whole).  ``axes``: names, tuples of them or
+    ``None``."""
+    names = tuple(n for a in axes if a for n in ((a,) if isinstance(a, str) else a))
+    return partial_placements(mesh, P(), names), axis_size(mesh, names)
+
+
+def _moe_one_region(p, x: torch.Tensor, *, top_k: int, capacity_factor: float):
+    e = p["router"].shape[1]
+    w_gate = p["w_gate"]
+
+    def layout(mesh):
+        ex = split_axes(mesh, "model", e)
+        el, (d, f) = e // axis_size(mesh, ex), w_gate.shape[1:]
+        fsdp = moves_activations(mesh, x.numel() // d * top_k, w_gate, 1,
+                                 2 * f + d // axis_size(mesh, "data"))
+        dp = None if fsdp else split_axes(mesh, batch_axes(mesh), x.shape[0])
+        w = P(ex, "data" if fsdp else None, None)
+        # with the rows whole (fsdp) every rank of ``data`` routes all of them
+        stat, shares = _moe_stats(mesh, dp, ex, "data" if fsdp else None)
+        kw = {"e0": axis_index(mesh, ex) * el, "shares": shares}
+        if fsdp:
+            kw["fsdp"] = (mesh, axis_index(mesh, "data"), axis_size(mesh, "data"))
+        return ([P(), w, w, w, P(dp, None, None)],
+                [partial_placements(mesh, P(dp, None, None), (ex, "data") if fsdp else ex),
+                 stat, stat], kw)
+
+    return local_region(
+        functools.partial(_moe_routed, top_k=top_k, capacity_factor=capacity_factor),
+        (p["router"], w_gate, p["w_up"], p["w_down"], x), layout)
+
+
+def _moe_three_regions(p, x: torch.Tensor, *, top_k: int, capacity_factor: float):
+    """:func:`moe`'s routed experts as dispatch, experts and combine, each
+    on each rank's shard, with the ``buf`` hook's layout between them."""
+    e = p["router"].shape[1]
+
+    def dispatch_layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), x.shape[0])
+        rows = P(dp, None)
+        stat, shares = _moe_stats(mesh, dp)
+        return ([P(), P(dp, None, None)],
+                [P(dp, None, None, None), rows, rows, rows, rows, stat, stat],
+                {"shares": shares})
+
+    buf, expert_of, pos_safe, gates, keep, me, ce = local_region(
+        functools.partial(_moe_dispatch, top_k=top_k, capacity_factor=capacity_factor),
+        (p["router"], x), dispatch_layout)
+    buf = _moe_constrain("buf", buf)                      # [B(data), E, C, D]
+
+    def expert_layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), buf.shape[0])
+        ex = split_axes(mesh, "model", e)
+        w = P(ex, None, None)
+        return [P(dp, ex, None, None), w, w, w], P(dp, ex, None, None), {}
+
+    out = local_region(_moe_experts, (buf, p["w_gate"], p["w_up"], p["w_down"]), expert_layout)
+    out = _moe_constrain("buf", out)
+
+    def combine_layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), x.shape[0])
+        rows = P(dp, None)
+        return [P(dp, None, None, None), rows, rows, rows, rows], P(dp, None, None), {}
+
+    y = local_region(functools.partial(_moe_combine, top_k=top_k),
+                     (out, expert_of, pos_safe, gates, keep), combine_layout)
+    return y, me, ce
+
+
+def _moe_dispatch(router, x: torch.Tensor, *, top_k: int, capacity_factor: float,
+                  shares: int = 1):
+    """Routing and dispatch of :func:`moe` → ``(buf [B, E, C, D], expert_of,
+    pos_safe, gates, keep [B, S·k], me [E], ce [E])``: the buffer of every
+    expert, each assignment's expert, slot (``C`` where dropped), gate and
+    whether it is kept, and the mean router probability and routed
+    fraction of each expert over the rows (this rank's share of them)."""
     b, s, d = x.shape
-    e, el = router.shape[1], w_gate.shape[0]
+    e = router.shape[1]
     probs = torch.softmax((x @ router).float(), dim=-1)                    # [B,S,E]
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = gate_vals[..., :top_k], gate_idx[..., :top_k]    # [B,S,K]
@@ -553,15 +689,42 @@ def _moe_routed(router, w_gate, w_up, w_down, x: torch.Tensor, *, top_k: int,
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, t)
     buf = x.new_zeros((b, e, cap + 1, d))
     buf.index_put_((bidx, expert_of, pos_safe), x[bidx, token_of])
-    buf = _moe_constrain("buf", buf[:, :, :cap])          # [B(data), E(model), C, D]
-    if el < e:                                             # this rank's experts
-        buf = buf[:, e0:e0 + el]
 
+    me = probs.mean(dim=(0, 1))                                         # [E]
+    ce = F.one_hot(gate_idx, e).sum(dim=2).float().mean(dim=(0, 1))     # routed fraction
+    if shares > 1:                # this rank's share of statistics every rank computes
+        me, ce = me / shares, ce / shares
+    return buf[:, :, :cap], expert_of, pos_safe, gates, keep, me, ce
+
+
+def _moe_experts(buf, w_gate, w_up, w_down, *, fsdp: tuple | None = None):
+    """The expert SwiGLU over ``buf [B, El, C, D]`` with the experts'
+    weights ``[El, ...]``.  With ``fsdp = (mesh, i, n)`` the weights hold
+    slice ``i`` of ``n`` of ``D`` (gate, up) and of ``F`` (down): the gate
+    and up products are summed over ``data``, the output is this rank's
+    partial sum."""
+    if fsdp is not None:
+        mesh, i, n = fsdp
+        dl = buf.shape[-1] // n
+        bd = buf[..., i * dl:(i + 1) * dl]
+        h = F.silu(sum_over(torch.einsum("becd,edf->becf", bd, w_gate), mesh, "data"))
+        h = h * sum_over(torch.einsum("becd,edf->becf", bd, w_up), mesh, "data")
+        fl = h.shape[-1] // n
+        return torch.einsum("becf,efd->becd", h[..., i * fl:(i + 1) * fl], w_down)
     h = F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
     h = h * torch.einsum("becd,edf->becf", buf, w_up)
-    out = _moe_constrain("buf", torch.einsum("becf,efd->becd", h, w_down))  # [B,E,C,D]
+    return torch.einsum("becf,efd->becd", h, w_down)                  # [B,El,C,D]
 
-    if el < e:
+
+def _moe_combine(out, expert_of, pos_safe, gates, keep, *, top_k: int, e0: int | None = None):
+    """Each assignment's expert output from ``out [B, El, C, D]``, weighted
+    by its gate, summed over each token's ``k`` → ``y [B, S, D]``.  With
+    ``e0``, ``out`` holds the experts ``[e0, e0 + El)`` only, and the others'
+    assignments give 0."""
+    b, t = expert_of.shape
+    el, cap, d = out.shape[1:]
+    bidx = torch.arange(b, device=out.device)[:, None].expand(b, t)
+    if e0 is not None:
         mine = (expert_of >= e0) & (expert_of < e0 + el)
         y_tok = out[bidx, (expert_of - e0).clamp(0, el - 1), pos_safe.clamp(0, cap - 1)]
         y_tok = y_tok * (gates * keep * mine).to(y_tok.dtype)[..., None]
@@ -570,10 +733,23 @@ def _moe_routed(router, w_gate, w_up, w_down, x: torch.Tensor, *, top_k: int,
         y_tok = y_tok * (gates * keep).to(y_tok.dtype)[..., None]
     # each token's k assignments are adjacent: sum them (the reference's
     # scatter-add onto the token, in a fixed order)
-    y = y_tok.reshape(b, s, top_k, d).sum(dim=2)
+    return y_tok.reshape(b, t // top_k, top_k, d).sum(dim=2)
 
-    me = probs.mean(dim=(0, 1))                                         # [E]
-    ce = F.one_hot(gate_idx, e).sum(dim=2).float().mean(dim=(0, 1))     # routed fraction
-    if shares > 1:                # this rank's share of statistics every rank computes
-        me, ce = me / shares, ce / shares
+
+def _moe_routed(router, w_gate, w_up, w_down, x: torch.Tensor, *, top_k: int,
+                capacity_factor: float, e0: int = 0, shares: int = 1,
+                fsdp: tuple | None = None):
+    """The routed experts of :func:`moe` over the experts ``[e0, e0 + El)``
+    that ``w_gate/w_up/w_down [El, ...]`` hold (all of them by default) →
+    ``(y [B, S, D], me [E], ce [E])``: ``y`` those experts' share of the
+    output, ``me`` and ``ce`` the mean router probability and the routed
+    fraction of each expert over the rows."""
+    e, el = router.shape[1], w_gate.shape[0]
+    buf, expert_of, pos_safe, gates, keep, me, ce = _moe_dispatch(
+        router, x, top_k=top_k, capacity_factor=capacity_factor, shares=shares)
+    if el < e:                                             # this rank's experts
+        buf = buf[:, e0:e0 + el]
+    out = _moe_experts(buf, w_gate, w_up, w_down, fsdp=fsdp)
+    y = _moe_combine(out, expert_of, pos_safe, gates, keep, top_k=top_k,
+                     e0=e0 if el < e else None)
     return y, me, ce

@@ -15,14 +15,18 @@ and params are plain dicts of tensors in the reference's layout.
 
 The xLSTM blocks (arXiv:2405.04517) carry O(1) state too: the mLSTM a
 matrix memory ``c [B, H, d, d]`` with its normaliser and stabiliser, the
-sLSTM a scalar memory with a true hidden recurrence.  Their full-sequence
-forward is the reference's scan over time, as a Python loop over tokens
-(no chunkwise-parallel form), and they launch no kernel.
+sLSTM a scalar memory with a true hidden recurrence.  The mLSTM's
+full-sequence forward is chunkwise (:func:`mlstm_chunkwise`: the
+reference's scan within rtol 1e-4; the token loop stays as
+:func:`mlstm_forward_tokens`); the sLSTM's recurrence runs a token at a
+time through one fused cell with its own gradient.  They launch no kernel.
 
 On DTensor params the projections are tensor-parallel over ``model`` and
-the mixers in between (Mamba2's conv and SSD, the xLSTM scans) run on each
-rank's batch rows, whole over ``model`` (:func:`_state_region`,
-:func:`_xlstm_region`); on plain tensors they run as written.
+the mixers in between run on each rank's shard: Mamba2's conv and SSD over
+heads (:func:`_mix_region`), the xLSTM cells over each head's columns
+(:func:`head_slices`), the decode steps' cells whole on every rank
+(:func:`_state_region`, :func:`_xlstm_region`), as the serving cache keeps
+their state; on plain tensors they run as written.
 """
 
 from __future__ import annotations
@@ -35,8 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, linear_cols, linear_rows, rmsnorm
-from repro_torch.sharding.partition import (P, axis_index, axis_size, batch_axes, local_region,
-                                            split_axes)
+from repro_torch.sharding.partition import (P, axis_index, axis_size, batch_axes, gather_over,
+                                            local_region, mesh_of, split_axes, sum_over)
 
 
 def init_mamba2(*, generator: torch.Generator, device, d_model: int, d_state: int,
@@ -88,7 +92,7 @@ def mamba2_init_state(p, batch: int, dtype=torch.float32) -> dict:
 def _causal_conv(p, xbc: torch.Tensor, conv_state: torch.Tensor | None = None):
     """Depthwise causal conv1d.  ``xbc [B, S, C]`` (+ optional carried state
     of the last ``d_conv-1`` inputs) → same shape + new state."""
-    dk = mamba2_meta(p)["d_conv"]
+    dk = p["conv_w"].shape[1]
     b, s, cdim = xbc.shape
     seq = xbc.transpose(1, 2)                                 # [B,C,S]
     pad = (torch.zeros((b, cdim, dk - 1), dtype=xbc.dtype, device=xbc.device)
@@ -143,6 +147,36 @@ def _keep_part(fn, pm, zxbcdt, state, *, part: int = 0, parts: int = 1, **kw):
     return y, st
 
 
+def _mix_region(p, zxbcdt: torch.Tensor, state: dict, *, chunk: int):
+    """:func:`_mamba2_mix` on each rank's shard, split over ``model`` by
+    heads as the SSM state is: each rank convolves its heads' x channels
+    (and B, C, which every head reads), runs the SSD over its heads and
+    returns its columns of ``y [..., d_inner]``, the gated norm's sum of
+    squares summed over ``model`` (:func:`_mamba2_mix`'s ``split``).  The
+    conv state comes back in the cache's layout.  Where the heads do not
+    divide ``model``, every rank runs the whole mixer
+    (:func:`_state_region`)."""
+    n_heads, conv_dim = state["ssm"].shape[1], state["conv"].shape[1]
+
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), zxbcdt.shape[0])
+        md = split_axes(mesh, "model", conv_dim)
+        mh = split_axes(mesh, "model", n_heads)
+        parts = axis_size(mesh, mh)
+        hl = n_heads // parts
+        return ([P(), P(dp), {"conv": P(dp, None, None), "ssm": P(dp, mh, None, None)}],
+                [P(dp, None, mh), P(dp, md, None), P(dp, mh, None, None)],
+                {"chunk": chunk,
+                 "split": (mesh, axis_index(mesh, mh) * hl, hl, axis_index(mesh, md),
+                           axis_size(mesh, md))})
+
+    mesh = mesh_of((zxbcdt, state))
+    if (mesh is None or split_axes(mesh, "model", n_heads) is None
+            or split_axes(mesh, "model", conv_dim) is None):
+        return _state_region(_mamba2_mix, p, zxbcdt, state, chunk=chunk)
+    return local_region(_mamba2_mix, (_mixer(p), zxbcdt, state), layout)
+
+
 def mamba2_forward(p, x: torch.Tensor, state: dict | None = None, *, chunk: int = 128):
     """Full-sequence forward.  ``x [B, S, D]`` → ``(y [B, S, D], state)``.
 
@@ -155,21 +189,41 @@ def mamba2_forward(p, x: torch.Tensor, state: dict | None = None, *, chunk: int 
     """
     if state is None:
         state = mamba2_init_state(p, x.shape[0], x.dtype)
-    y, state = _state_region(_mamba2_mix, p, linear_cols(x, p["in_proj"]), state, chunk=chunk)
+    y, state = _mix_region(p, linear_cols(x, p["in_proj"]), state, chunk=chunk)
     return linear_rows(y, p["out_proj"]), state
 
 
-def _mamba2_mix(p, zxbcdt: torch.Tensor, state: dict, *, chunk: int = 128):
+def _mamba2_mix(p, zxbcdt: torch.Tensor, state: dict, *, chunk: int = 128,
+                split: tuple | None = None):
     """The mixer of :func:`mamba2_forward` from ``in_proj``'s output
     ``[B, S, 2·d_inner + 2·N + H]`` to the gated, normed ``y [B, S,
-    d_inner]``, and the new state."""
+    d_inner]``, and the new state.
+
+    With ``split = (mesh, h0, hl, part, parts)`` (:func:`_mix_region`) only
+    heads ``[h0, h0 + hl)`` run: ``state["ssm"]`` holds those heads,
+    ``state["conv"]`` every channel; ``y`` is those heads' columns, the
+    norm's sum of squares summed over ``model``, and the conv state comes
+    back as slice ``part`` of ``parts`` of every channel (gathered over
+    ``model``)."""
     m = mamba2_meta(p)
-    nh, hp, ds = m["n_heads"], m["head_p"], m["d_state"]
+    nh, hp, ds, di = m["n_heads"], m["head_p"], m["d_state"], m["d_inner"]
     bsz, s, _ = zxbcdt.shape
-    z, xc, bmat, cmat, dt = torch.split(zxbcdt, [m["d_inner"], m["d_inner"], ds, ds, nh], dim=-1)
+    z, xc, bmat, cmat, dt = torch.split(zxbcdt, [di, di, ds, ds, nh], dim=-1)
+    conv_p, conv_in = p, state["conv"]
+    if split is not None:
+        mesh, h0, nh, part, parts = split
+        c0, cl = h0 * hp, nh * hp
+        z, xc, dt = z[..., c0:c0 + cl], xc[..., c0:c0 + cl], dt[..., h0:h0 + nh]
+        chans = torch.cat([torch.arange(c0, c0 + cl), torch.arange(di, di + 2 * ds)]).to(
+            zxbcdt.device)
+        conv_p = {"conv_w": p["conv_w"][chans], "conv_b": p["conv_b"][chans]}
+        conv_in = conv_in[:, chans]
+        p = {"a_log": p["a_log"][h0:h0 + nh], "dt_bias": p["dt_bias"][h0:h0 + nh],
+             "d_skip": p["d_skip"][h0:h0 + nh], "norm": {"scale": p["norm"]["scale"][c0:c0 + cl]}}
+        di = cl
     xbc = torch.cat([xc, bmat, cmat], dim=-1)
-    xbc, conv_state = _causal_conv(p, xbc, state["conv"])
-    xc, bmat, cmat = torch.split(xbc, [m["d_inner"], ds, ds], dim=-1)
+    xbc, conv_state = _causal_conv(conv_p, xbc, conv_in)
+    xc, bmat, cmat = torch.split(xbc, [di, ds, ds], dim=-1)
 
     # SSD recurrence in float32: exp/cumsum chains underflow in bf16
     in_dtype = zxbcdt.dtype
@@ -213,8 +267,16 @@ def _mamba2_mix(p, zxbcdt: torch.Tensor, state: dict, *, chunk: int = 128):
     y = (y_intra + y_inter).reshape(bsz, nc * q, nh, hp)[:, :s]
     y = y + xc.float().reshape(bsz, s, nh, hp) * p["d_skip"].float()[None, None, :, None]
     y = y.reshape(bsz, s, nh * hp).to(in_dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
-    return y, {"conv": conv_state, "ssm": h.to(state_dtype)}
+    if split is None:
+        y = rmsnorm(p["norm"], y * F.silu(z))
+        return y, {"conv": conv_state, "ssm": h.to(state_dtype)}
+    g = (y * F.silu(z)).float()
+    var = sum_over(g.square().sum(dim=-1, keepdim=True), mesh, "model") / m["d_inner"]
+    y = (g * torch.rsqrt(var + 1e-6) * p["norm"]["scale"].float()).to(y.dtype)
+    # every channel's window (B and C are each rank's own), cut to the cache's slice
+    conv_x = gather_over(conv_state[:, :cl], mesh, "model", 1)
+    conv_state = torch.cat([conv_x, conv_state[:, cl:]], dim=1).chunk(parts, dim=1)[part]
+    return y, {"conv": conv_state.contiguous(), "ssm": h.to(state_dtype)}
 
 
 def mamba2_step(p, x: torch.Tensor, state: dict):
@@ -316,8 +378,9 @@ def _mlstm_cell(p, state: dict, q, k, v, i_pre, f_pre):
 
 def _xlstm_region(fn, args: tuple, state: dict):
     """``fn(*args, state)`` → ``(y, state)`` on each rank's rows: every
-    tensor of ``args`` whole over ``model`` (the heads do not divide it),
-    the rows of ``args``, ``state`` and ``y`` over the batch axes."""
+    tensor of ``args`` whole over ``model``, the rows of ``args``,
+    ``state`` and ``y`` over the batch axes (the decode steps: the state
+    is whole on every rank, as the serving cache keeps it)."""
     def layout(mesh):
         dp = split_axes(mesh, batch_axes(mesh), next(iter(state.values())).shape[0])
         return [P()] + [P(dp)] * (len(args) - 1) + [P(dp)], [P(dp)] * (1 + len(state)), {}
@@ -325,30 +388,182 @@ def _xlstm_region(fn, args: tuple, state: dict):
     return local_region(fn, args + (state,), layout)
 
 
-def mlstm_forward(p, x: torch.Tensor, state: dict | None = None):
-    """``x [B,S,D]`` → ``(y [B,S,D], state)``, one token at a time (on
-    DTensors the scan runs on each rank's rows, :func:`_xlstm_region`)."""
+def head_slices(mesh, n_heads: int, width: int):
+    """How a ``model`` split of ``n_heads · head`` columns ``width`` wide
+    falls on heads: ``(h0, nh, e0, el)``, this rank's heads ``[h0, h0 +
+    nh)`` and their columns ``[e0, e0 + el)`` (whole heads, or one head's
+    slice), or ``None`` where the columns do not split that way."""
+    m = axis_size(mesh, "model")
+    head = width // n_heads
+    if m == 1 or width % m:
+        return None
+    cl, r = width // m, axis_index(mesh, "model")
+    if cl % head == 0:
+        return r * (cl // head), cl // head, 0, head
+    if head % cl == 0:
+        return r // (head // cl), 1, (r % (head // cl)) * cl, cl
+    return None
+
+
+def _head_sum(t: torch.Tensor, split: tuple, n_heads: int) -> torch.Tensor:
+    """``t [..., nh]``, sums over this rank's columns of its heads, → the
+    sums over each head's whole width: where the rank holds one head's
+    slice, a zero-padded ``[..., H]`` summed over ``model`` (the ranks that
+    share the head)."""
+    mesh, h0, nh, e0, el, head = split
+    if el == head:
+        return t
+    return sum_over(F.pad(t, (h0, n_heads - h0 - nh)), mesh, "model")[..., h0:h0 + nh]
+
+
+def mlstm_forward(p, x: torch.Tensor, state: dict | None = None, *, chunk: int = 64):
+    """``x [B,S,D]`` → ``(y [B,S,D], state)`` through the chunkwise form
+    (:func:`mlstm_chunkwise`).  On DTensors each rank runs its columns of
+    ``v`` (a head's slice of the matrix memory's value dim, or whole
+    heads) with the queries and keys of their heads; the head's norm sums
+    over the ranks that share it, and the state comes back whole."""
     if state is None:
         state = mlstm_init_state(p, x.shape[0])
     q, k, v = (linear_cols(x, p[w]) for w in ("wq", "wk", "wv"))
     ip, fp = _mlstm_gates(p, x)                         # [B,S,H]
-    ys, state = _xlstm_region(_mlstm_scan, (p["norm"], q, k, v, ip, fp), state)
+    n_heads, width = ip.shape[-1], v.shape[-1]
+
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), x.shape[0])
+        heads = head_slices(mesh, n_heads, width)
+        if heads is None:
+            return [P()] + [P(dp)] * 6, [P(dp)] * 4, {}
+        return ([P(), P(dp), P(dp), P(dp, None, "model"), P(dp), P(dp), P(dp)],
+                [P(dp, None, "model")] + [P(dp)] * 3,
+                {"split": (mesh, *heads, width // n_heads)})
+
+    ys, state = local_region(functools.partial(_mlstm_local, chunk=chunk),
+                             (p["norm"], q, k, v, ip, fp, state), layout)
     return linear_rows(ys, p["wo"]), state
 
 
-def _mlstm_scan(norm, q, k, v, ip, fp, state: dict):
-    """The token loop of :func:`mlstm_forward` from the flat projections
-    ``q/k/v [B,S,D]`` and gate pre-activations ``[B,S,H]`` to the normed
-    ``ys [B,S,D]`` before ``wo``."""
+def _mlstm_local(norm, q, k, v, ip, fp, state: dict, *, chunk: int, split: tuple | None = None):
+    """:func:`mlstm_forward` between the projections and ``wo`` on one
+    rank: ``q/k [B,S,D]``, ``v [B,S,·]`` (its columns), gates ``[B,S,H]``,
+    the whole state → ``(ys [B,S,·]`` normed, the whole new state).  With
+    ``split = (mesh, h0, nh, e0, el, head)`` only heads ``[h0, h0 + nh)``
+    and value columns ``[e0, e0 + el)`` of each run."""
     bsz, s, dmod = q.shape
     h = ip.shape[-1]
-    q, k, v = (t.reshape(bsz, s, h, dmod // h) for t in (q, k, v))
+    hd = dmod // h
+    q, k = (t.reshape(bsz, s, h, hd) for t in (q, k))
+    out_dtype = torch.promote_types(q.dtype, state["c"].dtype)
+    if split is None:
+        y, new = mlstm_chunkwise(q, k, v.reshape(bsz, s, h, hd), ip, fp, state, chunk=chunk)
+        y = rmsnorm(norm, y.to(out_dtype)).reshape(bsz, s, dmod)
+        return y.to(q.dtype), new
+    mesh, h0, nh, e0, el, _ = split
+    hs = slice(h0, h0 + nh)
+    st = {"c": state["c"][:, hs, :, e0:e0 + el], "n": state["n"][:, hs], "m": state["m"][:, hs]}
+    y, new = mlstm_chunkwise(q[:, :, hs], k[:, :, hs], v.reshape(bsz, s, nh, el), ip[..., hs],
+                             fp[..., hs], st, chunk=chunk)
+    yf = y.to(out_dtype).float()
+    var = _head_sum(yf.square().sum(dim=-1), split, h) / hd        # [B,S,nh]
+    y = yf * torch.rsqrt(var + 1e-6)[..., None] * norm["scale"][e0:e0 + el].float()
+    y = y.to(out_dtype).reshape(bsz, s, nh * el).to(q.dtype)
+    # the whole state on every rank: each rank's block of the memory, and
+    # the normaliser and stabiliser of each head (every rank of a head has them)
+    c = gather_over(new["c"], mesh, "model", -1 if el < hd else 1)
+    if el < hd:
+        c = c.reshape(bsz, hd, h, hd).transpose(1, 2)
+    g = hd // el
+    n = gather_over(new["n"], mesh, "model", 1)[:, ::g]
+    m = gather_over(new["m"], mesh, "model", 1)[:, ::g]
+    return y, {"c": c.contiguous(), "n": n.contiguous(), "m": m.contiguous()}
+
+
+def mlstm_chunkwise(q, k, v, ip, fp, state: dict, *, chunk: int = 64):
+    """The mLSTM recurrence (:func:`_mlstm_cell`) over a sequence in
+    chunks → ``(h [B,S,H,e]`` before the head norm, in fp32, the new
+    state in the state's dtypes).  ``q, k [B,S,H,d]``, ``v [B,S,H,e]``,
+    ``ip, fp [B,S,H]``; ``state`` ``c [B,H,d,e]``, ``n [B,H,d]``, ``m
+    [B,H]``.
+
+    With ``b_t`` the cumulative log forget gate within a chunk and ``m0``
+    the stabiliser carried in, token ``t``'s stabiliser is ``m_t = max(b_t
+    + m0, max_{s≤t} b_t − b_s + i_s)`` — the recurrence ``max(log f_t +
+    m_{t−1}, i_t)`` unrolled — and its output is the stabilised quadratic
+    form over the chunk's keys plus the carried memory's term, both scaled
+    by ``exp(· − m_t)``.  Across chunks ``(c, n, m)`` is carried as
+    :func:`mamba2_forward` carries ``h``.  A tail shorter than a chunk is
+    padded with tokens whose input gate is ``−inf`` (they add nothing) and
+    whose forget gate is 1."""
+    bsz, s, nh, d = q.shape
+    f32 = torch.float32
+    pad = (-s) % chunk
+    nc = (s + pad) // chunk
+    k = k / math.sqrt(d)
+
+    def blocks(t):                                   # [B,S,H,·] → [B,H,nc,L,·]
+        t = F.pad(t.to(f32), (0, 0, 0, 0, 0, pad))
+        return t.reshape(bsz, nc, chunk, nh, -1).permute(0, 3, 1, 2, 4)
+
+    qc, kc, vc = blocks(q), blocks(k), blocks(v)
+    logf = F.pad(-F.softplus(-fp.to(f32)), (0, 0, 0, pad))
+    ig = F.pad(ip.to(f32), (0, 0, 0, pad), value=float("-inf"))
+    logf = logf.reshape(bsz, nc, chunk, nh).permute(0, 3, 1, 2)      # [B,H,nc,L]
+    ig = ig.reshape(bsz, nc, chunk, nh).permute(0, 3, 1, 2)
+    b = torch.cumsum(logf, dim=-1)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=q.device).tril()
+    dmat = (b[..., :, None] - b[..., None, :] + ig[..., None, :]).masked_fill(~tri, float("-inf"))
+
+    # each chunk's own contribution to the memory at its end, stabilised by
+    # lmax; the normaliser rides along as the memory's last value column
+    wend = b[..., -1:] - b + ig                                        # [B,H,nc,L]
+    lmax = wend.amax(dim=-1)                                           # [B,H,nc]
+    wk = kc * torch.exp(wend - lmax[..., None])[..., None]
+    cn_loc = wk.transpose(-1, -2) @ F.pad(vc, (0, 1), value=1.0)       # [B,H,nc,d,e+1]
+
+    # the stabiliser at each chunk's end, unrolled as within a chunk:
+    # m_c = B_c + max(m0, max_{j≤c} lmax_j − B_j), B the inclusive cumsum of
+    # the chunks' total log decay
+    bl = b[..., -1]
+    bi = torch.cumsum(bl, dim=-1)
+    m_in = state["m"].to(f32)
+    m_end = bi + torch.maximum(m_in[..., None], torch.cummax(lmax - bi, dim=-1).values)
+    m0 = torch.cat([m_in[..., None], m_end[..., :-1]], dim=-1)         # at each chunk's start
+    fa = torch.exp(bl + m0 - m_end)[..., None, None]
+    fb = torch.exp(lmax - m_end)[..., None, None]
+    cn = torch.cat([state["c"].to(f32), state["n"].to(f32)[..., None]], dim=-1)
+    starts = []
+    for fa_c, fb_c, cn_c in zip(fa.unbind(2), fb.unbind(2), cn_loc.unbind(2)):
+        starts.append(cn)
+        cn = torch.addcmul(fa_c * cn, fb_c, cn_c)
+    cn0 = torch.stack(starts, dim=2)                                   # [B,H,nc,d,e+1]
+    c, n, m = cn[..., :-1], cn[..., -1], m_end[..., -1]
+
+    g = b + m0[..., None]                                              # carried-in weight
+    mt = torch.maximum(g, dmat.amax(dim=-1))                           # [B,H,nc,L]
+    sc = (qc @ kc.transpose(-1, -2)) * torch.exp(dmat - mt[..., None])
+    inter = torch.exp(g - mt)
+    num = F.pad(sc @ vc, (0, 1)) + F.pad(sc.sum(dim=-1, keepdim=True), (vc.shape[-1], 0))
+    num = num + inter[..., None] * (qc @ cn0)                          # [..., e+1]: y, q·n
+    y = num[..., :-1] / torch.maximum(num[..., -1].abs(), torch.exp(-mt))[..., None]
+    y = y.permute(0, 2, 3, 1, 4).reshape(bsz, nc * chunk, nh, -1)[:, :s]
+    return y, {"c": c.to(state["c"].dtype), "n": n.to(state["n"].dtype),
+               "m": m.to(state["m"].dtype)}
+
+
+def mlstm_forward_tokens(p, x: torch.Tensor, state: dict | None = None):
+    """:func:`mlstm_forward` one token at a time through :func:`_mlstm_cell`
+    (the reference's scan; the plain oracle of :func:`mlstm_chunkwise`)."""
+    if state is None:
+        state = mlstm_init_state(p, x.shape[0])
+    bsz, s, dmod = x.shape
+    h = mlstm_meta(p)["n_heads"]
+    q, k, v = ((x @ p[w]).reshape(bsz, s, h, dmod // h) for w in ("wq", "wk", "wv"))
+    ip, fp = _mlstm_gates(p, x)
     ys = []
     for t in range(s):
         state, y = _mlstm_cell(None, state, q[:, t], k[:, t], v[:, t], ip[:, t], fp[:, t])
         ys.append(y)
-    ys = rmsnorm(norm, torch.stack(ys, dim=1)).reshape(bsz, s, dmod)
-    return ys, state
+    ys = rmsnorm(p["norm"], torch.stack(ys, dim=1)).reshape(bsz, s, dmod)
+    return ys @ p["wo"], state
 
 
 def mlstm_step(p, x: torch.Tensor, state: dict):
@@ -396,55 +611,249 @@ def slstm_init_state(p, batch: int, dtype=torch.float32) -> dict:
             "m": torch.full(shape[:2], float("-inf"), dtype=dtype, device=dev)}
 
 
-def _slstm_cell(p, state: dict, x_t: torch.Tensor):
-    m = slstm_meta(p)
-    nh, hds = m["n_heads"], m["head_dim"]
-    bsz, dmod = x_t.shape
-    h_prev = state["h"].reshape(bsz, dmod)
-    g = x_t @ p["w_x"] + _promote(h_prev, p["w_h"]) @ _promote(p["w_h"], h_prev) + p["b"]
-    z, i_pre, f_pre, o = g.chunk(4, dim=-1)
-    rs = lambda t: t.reshape(bsz, nh, hds)
-    z, o = torch.tanh(rs(z)), torch.sigmoid(rs(o))
-    # exponential gating with a per-head stabiliser (head-mean pre-activations)
-    i_h = rs(i_pre).mean(-1)
-    f_h = rs(f_pre).mean(-1)
-    logf = -F.softplus(-f_h)
-    m_new = torch.maximum(logf + state["m"], i_h)
-    i = torch.exp(i_h - m_new)[..., None]
-    f = torch.exp(logf + state["m"] - m_new)[..., None]
-    c = f * state["c"] + i * z
-    n = f * state["n"] + i
-    h_new = o * (c / torch.clamp_min(n, 1.0))
-    return {"c": c, "n": n, "h": h_new, "m": m_new}, h_new
-
-
 _SLSTM = ("w_x", "w_h", "b", "norm")
 
 
 def slstm_forward(p, x: torch.Tensor, state: dict | None = None):
-    """``x [B,S,D]`` → ``(y [B,S,D], state)``, one token at a time (on
-    DTensors the scan runs on each rank's rows, :func:`_xlstm_region`)."""
+    """``x [B,S,D]`` → ``(y [B,S,D], state)``: the input projection ``x @
+    w_x`` for every token at once, then the recurrence one token at a time
+    (:func:`_slstm_scan`).  On DTensors each rank runs its columns of every
+    gate (:func:`head_slices` of ``D``; the weights brought to that layout
+    by one all-to-all each), the hidden state gathered over ``model`` each
+    token, the i and f gates' mean weights summed over the ranks that share
+    a head; the state comes back whole."""
     if state is None:
         state = slstm_init_state(p, x.shape[0])
-    hs, state = _xlstm_region(_slstm_scan, ({k: p[k] for k in _SLSTM}, x), state)
+    n_heads, d = state["m"].shape[1], x.shape[-1]
+
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), x.shape[0])
+        heads = head_slices(mesh, n_heads, d)
+        cols = split_axes(mesh, "model", 4 * d)
+        if heads is None or cols is None:
+            return [P()] * 4 + [P(dp), P(dp)], [P(dp)] * 5, {}
+        w = P(None, "model")
+        return ([w, w, P(), P(), P(dp), P(dp)], [P(dp, None, "model")] + [P(dp)] * 4,
+                {"split": (mesh, *heads, d // n_heads)})
+
+    hs, state = local_region(_slstm_scan, (*(p[k] for k in _SLSTM), x, state), layout)
     return linear_rows(hs, p["wo"]), state
 
 
-def _slstm_scan(p, x: torch.Tensor, state: dict):
+def _gate_columns(w: torch.Tensor, mesh) -> torch.Tensor:
+    """A ``[in, 4·D]`` weight split over ``model`` by columns (this rank's
+    ``w [in, 4·D/m]``) → this rank's columns ``[j·D/m, (j + 1)·D/m)`` of
+    each of the four gates ``[in, 4, D/m]``, by one all-to-all over
+    ``model``."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+    m, r = axis_size(mesh, "model"), axis_index(mesh, "model")
+    u = w.shape[1] // 4
+    # chunk k of this rank's columns is column block 4r + k of the 4m blocks
+    # of u: gate (4r + k) // m, for rank (4r + k) % m
+    dest = [(4 * r + k) % m for k in range(4)]
+    order = sorted(range(4), key=lambda k: dest[k])
+    send = torch.cat([w[:, k * u:(k + 1) * u].T for k in order])        # [4u, in]
+    n_in = [dest.count(j) * u for j in range(m)]
+    n_out = [sum(((4 * src + k) % m) == r for k in range(4)) * u for src in range(m)]
+    got = all_to_all_single_autograd(send.contiguous(), n_out, n_in,
+                                     (mesh, mesh.mesh_dim_names.index("model")))
+    return got.reshape(4, u, w.shape[0]).permute(2, 0, 1)                # [in, 4, u]
+
+
+def _slstm_scan(w_x, w_h, b, norm, x: torch.Tensor, state: dict, *, split: tuple | None = None):
+    """:func:`slstm_forward` before ``wo`` on one rank → ``(hs [B,S,·]``
+    normed, the whole new state).  With ``split = (mesh, h0, nh, e0, el,
+    head)`` only heads ``[h0, h0 + nh)`` and columns ``[e0, e0 + el)`` of
+    each run (``w_x``, ``w_h`` this rank's columns of ``[D, 4·D]``).
+
+    The input and forget gates enter the cell only through their head
+    means, and a mean of products is the product with the mean weights: so
+    the projections carry the z and o gates' columns and one mean column of
+    i and of f a head.  The recurrence runs on the state transposed,
+    ``[heads, columns, B]``, so that the hidden state gathered over
+    ``model`` is already ``h [D, B]``."""
     bsz, s, dmod = x.shape
-    hs = []
-    for t in range(s):
-        state, h = _slstm_cell(p, state, x[:, t])
-        hs.append(h)
-    return rmsnorm(p["norm"], torch.stack(hs, dim=1)).reshape(bsz, s, dmod), state
+    n_heads, hd = state["m"].shape[1], state["c"].shape[-1]
+    if split is None:
+        h0, nh, e0, el, j = 0, n_heads, 0, hd, 0
+        wx, wh = w_x.reshape(dmod, 4, dmod), w_h.reshape(dmod, 4, dmod)
+        bb = b.reshape(4, dmod)
+    else:
+        mesh, h0, nh, e0, el, _ = split
+        j = axis_index(mesh, "model")
+        wx, wh = _gate_columns(w_x, mesh), _gate_columns(w_h, mesh)
+        bb = b.reshape(4, dmod)[:, j * nh * el:(j + 1) * nh * el]
+    u = nh * el
+
+    def gates(w):        # [..., 4, u] → [..., 2u + 2nh]: z, o, then i's and f's head means
+        means = w[..., 1:3, :].reshape(*w.shape[:-2], 2, nh, el).sum(dim=-1)
+        if split is not None:
+            means = _head_sum(means, split, n_heads)
+        return torch.cat([w[..., 0, :], w[..., 3, :], (means / hd).flatten(-2)], dim=-1)
+
+    cdt = torch.promote_types(torch.promote_types(w_h.dtype, state["h"].dtype), x.dtype)
+    gx = (x @ gates(wx) + gates(bb)).to(cdt).permute(1, 2, 0).contiguous()   # [S, 2u+2nh, B]
+    wh_t = gates(wh).to(cdt).T.contiguous()                                   # [2u+2nh, D]
+    cols = slice(j * u, (j + 1) * u)
+    mine = lambda t: t.reshape(bsz, dmod)[:, cols].T.to(cdt)                  # [u, B]
+    # the state packed as one tensor [c; n; h; m] of [3u + nh, B]
+    st = torch.cat([mine(state["c"]), mine(state["n"]), mine(state["h"]),
+                    state["m"][:, h0:h0 + nh].T.to(cdt)])
+    if split is None:
+        whole = lambda t: t
+    else:
+        group = mesh.get_group("model").group_name
+        size = axis_size(mesh, "model")
+        # the cell waits for the gathered h itself (one dispatch less a token)
+        whole = lambda t: torch.ops._c10d_functional_autograd.all_gather_into_tensor(
+            t, size, group)
+    sts = []
+    for gx_t in gx.unbind(0):                 # one token at a time: nothing else per token
+        st = _slstm_cell_op(gx_t, wh_t, whole(st[2 * u:3 * u]), st, nh, split is not None)
+        sts.append(st)
+    hs = torch.stack(sts)[:, 2 * u:3 * u].reshape(s, nh, el, bsz).permute(3, 0, 1, 2)  # [B,S,nh,el]
+    c, n, h, m = st[:u], st[u:2 * u], st[2 * u:3 * u], st[3 * u:]
+    if split is None:
+        hs = rmsnorm(norm, hs.to(state["h"].dtype)).reshape(bsz, s, dmod)
+        back = lambda t, ref: t.T.reshape(ref.shape).to(ref.dtype).contiguous()
+        return hs.to(x.dtype), {"c": back(c, state["c"]), "n": back(n, state["n"]),
+                                "h": back(h, state["h"]),
+                                "m": m.T.to(state["m"].dtype).contiguous()}
+    hf = hs.float()
+    var = _head_sum(hf.square().sum(dim=-1), split, n_heads) / hd
+    hs = hf * torch.rsqrt(var + 1e-6)[..., None] * norm["scale"][e0:e0 + el].float()
+    hs = hs.to(cdt).reshape(bsz, s, u).to(x.dtype)
+    back = lambda t, ref: torch.ops._c10d_functional.wait_tensor(whole(t.contiguous())).T.reshape(
+        ref.shape).to(ref.dtype).contiguous()
+    mm = gather_over(m, mesh, "model", 0)[::hd // el].T                      # [B, H]
+    return hs, {"c": back(c, state["c"]), "n": back(n, state["n"]), "h": back(h, state["h"]),
+                "m": mm.to(state["m"].dtype).contiguous()}
+
+
+def _slstm_cell_math(g, st, nh: int):
+    """One sLSTM step on the packed, transposed state: ``g [2u + 2nh, B]``
+    (the z and o gates' pre-activations, then the i and f head means),
+    ``st = [c; n; h; m]`` (``c, n, h [u, B]``, ``nh`` heads' columns
+    head-major; ``m [nh, B]``) → the new ``st``."""
+    u, bsz = (st.shape[0] - nh) // 3, st.shape[1]
+    heads = lambda t: t.view(nh, u // nh, bsz)
+    c, n, m = st[:u], st[u:2 * u], st[3 * u:]
+    z, o = torch.tanh(g[:u]), torch.sigmoid(g[u:2 * u])
+    i_h = g[2 * u:2 * u + nh]
+    lfm = F.logsigmoid(g[2 * u + nh:]) + m                  # log sigmoid(f) + m
+    m_new = torch.maximum(lfm, i_h)
+    i = torch.exp(i_h - m_new)[:, None]
+    f = torch.exp(lfm - m_new)[:, None]
+    c = torch.addcmul(f * heads(c), i, heads(z)).view(u, bsz)
+    n = torch.addcmul(i, f, heads(n)).view(u, bsz)
+    return torch.cat([c, n, o * (c / torch.clamp_min(n, 1.0)), m_new])
+
+
+def _gathered(h: torch.Tensor, gathered: bool) -> torch.Tensor:
+    return torch.ops._c10d_functional.wait_tensor(h) if gathered else h
+
+
+@torch.library.custom_op("repro_torch::slstm_cell", mutates_args=())
+def _slstm_cell_op(gx: torch.Tensor, w_t: torch.Tensor, h: torch.Tensor, st: torch.Tensor,
+                   nh: int, gathered: bool) -> torch.Tensor:
+    """One token of the recurrence as one operation: ``g = gx + w_t @ h``
+    (``h [D, B]`` the whole hidden state, a pending all-gather's output
+    when ``gathered``), then :func:`_slstm_cell_math`.  Its gradient is one
+    more (:func:`_slstm_cell_grad`), and its FLOPs are counted by the
+    formulas registered below: a token's trace is a few dispatches instead
+    of some fifty."""
+    return _slstm_cell_math(gx + w_t @ _gathered(h, gathered), st, nh)
+
+
+@_slstm_cell_op.register_fake
+def _(gx, w_t, h, st, nh, gathered):
+    return torch.empty_like(st)
+
+
+@torch.library.custom_op("repro_torch::slstm_cell_grad", mutates_args=())
+def _slstm_cell_grad_op(gx: torch.Tensor, w_t: torch.Tensor, h: torch.Tensor, st: torch.Tensor,
+                        st_new: torch.Tensor, grad: torch.Tensor,
+                        nh: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`_slstm_cell_op` → ``(dgx, dw_t, dh, dst)``
+    (``g`` taken again from ``gx``, ``w_t`` and ``h``)."""
+    dg, dst = _slstm_cell_grad(gx + w_t @ h, st, st_new, grad, nh)
+    return dg, dg @ h.T, w_t.T @ dg, dst
+
+
+@_slstm_cell_grad_op.register_fake
+def _(gx, w_t, h, st, st_new, grad, nh):
+    return torch.empty_like(gx), torch.empty_like(w_t), torch.empty_like(h), torch.empty_like(st)
+
+
+def _slstm_cell_flops(gx, w_t, h, *args, out_shape=None, **kwargs) -> int:
+    """``w_t @ h``'s FLOPs (the formulas take shapes)."""
+    return 2 * w_t[0] * w_t[1] * h[1]
+
+
+def _slstm_cell_grad_flops(gx, w_t, h, *args, out_shape=None, **kwargs) -> int:
+    return 3 * _slstm_cell_flops(gx, w_t, h)          # g again, then dw_t and dh
+
+
+def _register_cell_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    register_flop_formula(torch.ops.repro_torch.slstm_cell)(_slstm_cell_flops)
+    register_flop_formula(torch.ops.repro_torch.slstm_cell_grad)(_slstm_cell_grad_flops)
+
+
+_register_cell_flops()
+
+
+def _slstm_cell_grad(g, st, st_new, grad, nh: int):
+    """The backward of :func:`_slstm_cell_math` from its inputs, output and
+    the output's gradient, as autograd would take it (the maximum's
+    gradient split evenly on a tie, the clamp's passed where ``n >= 1``)."""
+    u, bsz = (st.shape[0] - nh) // 3, st.shape[1]
+    heads = lambda t: t.view(nh, u // nh, bsz)
+    c, n, m = st[:u], st[u:2 * u], st[3 * u:]
+    c_new, n_new, m_new = st_new[:u], st_new[u:2 * u], st_new[3 * u:]
+    gc, gn, gh, gm = grad[:u], grad[u:2 * u], grad[2 * u:3 * u], grad[3 * u:]
+    z, o = torch.tanh(g[:u]), torch.sigmoid(g[u:2 * u])
+    i_h, f_pre = g[2 * u:2 * u + nh], g[2 * u + nh:]
+    lfm = F.logsigmoid(f_pre) + m
+    i, f = torch.exp(i_h - m_new), torch.exp(lfm - m_new)
+    den = torch.clamp_min(n_new, 1.0)
+    r = c_new / den
+    dr = gh * o
+    dc_h = heads(gc + dr / den)
+    dn_h = heads(gn - (dr * r / den) * (n_new >= 1.0))
+    di = (dc_h * heads(z) + dn_h).sum(dim=1)                     # [nh, B]
+    df = (dc_h * heads(c) + dn_h * heads(n)).sum(dim=1)
+    dm_new = gm - di * i - df * f
+    tie = (lfm == i_h).to(g.dtype) * 0.5
+    dlfm = df * f + dm_new * ((lfm > i_h).to(g.dtype) + tie)
+    d_ih = di * i + dm_new * ((i_h > lfm).to(g.dtype) + tie)
+    dg = torch.cat([(dc_h * i[:, None]).view(u, bsz) * (1 - z * z), gh * r * o * (1 - o),
+                    d_ih, dlfm * torch.sigmoid(-f_pre)])
+    f_col = f[:, None]
+    dst = torch.cat([(dc_h * f_col).view(u, bsz), (dn_h * f_col).view(u, bsz),
+                     torch.zeros_like(gh), dlfm])
+    return dg, dst
+
+
+def _slstm_cell_setup(ctx, inputs, output):
+    gx, w_t, h, st, nh, gathered = inputs
+    ctx.nh = nh
+    ctx.save_for_backward(gx, w_t, h, st, output)
+
+
+def _slstm_cell_backward(ctx, grad):
+    gx, w_t, h, st, st_new = ctx.saved_tensors
+    dgx, dw, dh, dst = _slstm_cell_grad_op(gx, w_t, h, st, st_new, grad, ctx.nh)
+    return dgx, dw, dh, dst, None, None
+
+
+_slstm_cell_op.register_autograd(_slstm_cell_backward, setup_context=_slstm_cell_setup)
 
 
 def slstm_step(p, x: torch.Tensor, state: dict):
-    """Single-token decode.  ``x [B, D]`` → ``(y [B, D], state)``."""
-    h, state = _xlstm_region(_slstm_step_local, ({k: p[k] for k in _SLSTM}, x), state)
-    return linear_rows(h, p["wo"]), state
-
-
-def _slstm_step_local(p, x: torch.Tensor, state: dict):
-    state, h = _slstm_cell(p, state, x)
-    return rmsnorm(p["norm"], h).reshape(x.shape[0], -1), state
+    """Single-token decode.  ``x [B, D]`` → ``(y [B, D], state)``: the
+    forward over one token (:func:`slstm_forward`)."""
+    y, state = slstm_forward(p, x[:, None], state)
+    return y[:, 0], state

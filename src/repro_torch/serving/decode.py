@@ -486,11 +486,13 @@ def serve_step(params, cfg, tokens: torch.Tensor, cache: dict, *,
             blk = params["blocks"][i]
             h = L.rmsnorm(blk["norm"], x)
             if kind == "mamba2":
-                y, layers[i] = S.mamba2_step(blk["mamba"], h, layers[i])
+                y, new = S.mamba2_step(blk["mamba"], h, layers[i])
             elif kind == "mlstm":
-                y, layers[i] = S.mlstm_step(blk["mlstm"], h, layers[i])
+                y, new = S.mlstm_step(blk["mlstm"], h, layers[i])
             else:
-                y, layers[i] = S.slstm_step(blk["slstm"], h, layers[i])
+                y, new = S.slstm_step(blk["slstm"], h, layers[i])
+            for key, t in new.items():           # the state in place, as the KV
+                layers[i][key].copy_(t)
             x = x + like(y, x)
         x_prev = x_in
     if whisper:

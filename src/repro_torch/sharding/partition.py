@@ -263,7 +263,10 @@ def constrain(x, spec: P):
 
 def mesh_of(tree):
     """The device mesh of the first DTensor in ``tree`` (nested dicts, lists
-    and tuples), or ``None``: a plain tree costs a walk over its nodes."""
+    and tuples), or ``None``.  Without a process group there is no DTensor:
+    the plain path skips the walk."""
+    if not torch.distributed.is_available() or not torch.distributed.is_initialized():
+        return None
     from torch.distributed.tensor import DTensor
 
     def find(node):
@@ -416,3 +419,40 @@ def like(y, x):
     if not isinstance(y, DTensor) or not isinstance(x, DTensor):
         return y
     return y.redistribute(x.device_mesh, x.placements)
+
+
+def shard_dim(x, axis: str):
+    """The tensor dim that mesh axis ``axis`` splits in DTensor ``x``
+    (``None`` for a plain tensor, an axis ``x``'s mesh lacks, or a whole or
+    partial placement there)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor) or axis not in x.device_mesh.mesh_dim_names:
+        return None
+    pl = x.placements[x.device_mesh.mesh_dim_names.index(axis)]
+    return pl.dim if isinstance(pl, Shard) and x.device_mesh.size(
+        x.device_mesh.mesh_dim_names.index(axis)) > 1 else None
+
+
+def gather_over(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Inside a region: ``t`` of every rank along mesh axis ``axis``,
+    concatenated along ``dim`` in rank order (an all-gather whose backward
+    sums each rank's share of the gradient back to it)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t
+    dim = dim % t.dim()
+    out = torch.ops._c10d_functional.wait_tensor(
+        torch.ops._c10d_functional_autograd.all_gather_into_tensor(
+            t.contiguous(), n, mesh.get_group(axis).group_name))
+    out = out.reshape(n, *t.shape)
+    return out.movedim(0, dim).reshape(*t.shape[:dim], n * t.shape[dim], *t.shape[dim + 1:])
+
+
+def sum_over(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Inside a region: the sum of ``t`` over the ranks along ``axis``
+    (each rank's partial share in, the whole on every rank out)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t
+    return gather_over(t[None], mesh, axis, 0).sum(0)

@@ -11,6 +11,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.sharding.partition import (P, axis_index, axis_size, batch_axes, gather_over,
+                                            local_region, partial_placements, split_axes,
+                                            sum_over)
 from repro_torch.training.optim import AdamWConfig, AdamWState, adamw_init, adamw_update, cosine_lr
 from repro_torch.utils.treeops import tree_leaves, tree_unflatten
 
@@ -21,9 +24,49 @@ class TrainState(NamedTuple):
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy.  ``logits [B, S, V]``, ``targets [B, S]`` int."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+    """Mean token cross-entropy.  ``logits [B, S, V]``, ``targets [B, S]`` int.
+    On DTensors each rank works on its shard (:func:`_token_nll`)."""
+    return _token_nll(logits, targets.long()).mean()
+
+
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each token's negative log-likelihood ``[B, S]``; on DTensors on each
+    rank's shard: rows over the batch axes, the vocab over ``model`` where
+    it divides (the log-sum-exp summed over ``model``, a rank's targets
+    outside its vocab slice giving 0, the result a partial sum over
+    ``model``).  DTensor's own softmax and gather would gather the vocab
+    and take the gather's backward at the global shape."""
+
+    def layout(mesh):
+        dp = split_axes(mesh, batch_axes(mesh), logits.shape[0])
+        m = split_axes(mesh, "model", logits.shape[-1])
+        kw = {"split": (mesh, axis_index(mesh, m) * (logits.shape[-1] // axis_size(mesh, m)),
+                        axis_size(mesh, m))}
+        return ([P(dp, None, m), P(dp, None)], partial_placements(mesh, P(dp, None), m), kw)
+
+    return local_region(_nll_local, (logits, targets), layout)
+
+
+def _nll_local(logits: torch.Tensor, targets: torch.Tensor, *, split: tuple | None = None):
+    """``-log_softmax(logits)`` at ``targets``.  With ``split = (mesh, v0,
+    n)`` ``logits`` is the vocab slice ``[v0, v0 + V_local)`` of ``n`` over
+    ``model``: the log-sum-exp is taken over every slice (its maximum
+    detached: the result does not depend on it), and this rank's share is
+    ``lse / n`` less its own target's logit (0 outside its slice)."""
+    if split is None:
+        return -torch.log_softmax(logits.float(), dim=-1).gather(-1, targets[..., None])[..., 0]
+    mesh, v0, n = split
+    x = logits.float()
+    top = x.amax(dim=-1, keepdim=True).detach()
+    if n > 1:
+        top = gather_over(top, mesh, "model", -1).amax(dim=-1, keepdim=True)
+        lse = top[..., 0] + torch.log(sum_over(torch.exp(x - top).sum(dim=-1), mesh, "model"))
+    else:
+        lse = top[..., 0] + torch.log(torch.exp(x - top).sum(dim=-1))
+    local = targets - v0
+    mine = (local >= 0) & (local < x.shape[-1])
+    picked = x.gather(-1, local.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+    return lse / n - picked * mine.to(x.dtype)
 
 
 def make_loss_fn(forward: Callable, cfg, *, aux_weight: float = 0.01):

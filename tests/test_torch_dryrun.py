@@ -1,18 +1,23 @@
-"""The model's DTensor forward, serving step and train step over a 2×2 mesh
-against the plain versions, and the port's dry run (``launch/dryrun.py``)
-over the fake 256-rank world.
+"""The model's DTensor forward, serving step and train step over a 2×2 and a
+1×4 mesh against the plain versions, and the port's dry run
+(``launch/dryrun.py``) over the fake 256-rank world.
 
-The 2×2 checks run as four gloo processes on the CPU, spawned once by a
+The mesh checks run as four gloo processes on the CPU, spawned once by a
 module fixture (this file run as a script, one rank each; rendezvous
 through a file under ``tmp_path``; 120 s deadline).  Each rank lays a smoke
 config's params out by the partition rules over a ``("data", "model")``
-mesh of 2×2, runs the step on DTensors and compares the full result with
-the plain step on the same values: the dense (and a one-KV-head variant,
-whose KV heads stay whole while the query heads split), MoE, Mamba2 hybrid,
-mLSTM/sLSTM and Whisper families; the decode step batch-sharded and, for
-Llama, sequence-sharded with and without KVSwap selection; the train step
-under FSDP specs.  Tolerance: 1e-5 of max(1, the largest |value|) of the
-plain result (fp32; the shards sum in another order).
+mesh, runs the step on DTensors and compares the full result with the
+plain step on the same values.  Over 2×2: the dense (and a one-KV-head
+variant, whose KV heads stay whole while the query heads split), MoE
+(OLMoE, Maverick), Mamba2 hybrid, mLSTM/sLSTM and Whisper families; the
+decode step batch-sharded and, for Llama, sequence-sharded with and
+without KVSwap selection, and for the MoE one row with FSDP weights; the
+train step under FSDP specs.  Over 1×4, layouts that split what the rules
+leave whole: Whisper with 6 heads (each rank attends with the heads under
+its columns), xLSTM with 2 (each head's columns split), Mamba2's heads,
+and the MoE with the dry run's ``buf`` hook.  Tolerance: 1e-5 of max(1,
+the largest |value|) of the plain result (fp32; the shards sum in another
+order).
 
 The fake world runs :func:`repro_torch.launch.dryrun.run_one` at full
 width on 16×16, cut in depth by replacing the registry's config (the
@@ -38,7 +43,12 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.sharding import partition as SP
 
 CASES = ["llama3-8b", "llama3-8b-mqa", "olmoe-1b-7b", "zamba2-1.2b", "xlstm-1.3b",
-         "whisper-large-v3"]
+         "whisper-large-v3", "llama4-maverick-400b-a17b"]
+# on a 1x4 mesh: heads that do not divide ``model`` (Whisper's 6 over 4 take
+# the column layout; xLSTM's 2 split each head's columns), Mamba2's heads
+# split over it, and the MoE with the dry run's ``buf`` hook on
+CASES_1X4 = ["whisper-6h", "xlstm-2h", "zamba2-1.2b", "llama4-maverick-400b-a17b"]
+MESHES = {"2x2": ((2, 2), CASES), "1x4": ((1, 4), CASES_1X4)}
 TOL = 1e-5
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -46,6 +56,11 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 def _cfg(case: str):
     if case == "llama3-8b-mqa":
         return dataclasses.replace(registry.smoke("llama3-8b"), n_kv_heads=1)
+    if case == "whisper-6h":
+        return dataclasses.replace(registry.smoke("whisper-large-v3"), n_heads=6, n_kv_heads=6)
+    if case == "xlstm-2h":
+        return dataclasses.replace(registry.smoke("xlstm-1.3b"), n_heads=2, n_kv_heads=2,
+                                   head_dim=64)
     return registry.smoke(case)
 
 
@@ -86,9 +101,15 @@ def _distribute(tree, mesh, specs):
     return tree
 
 
-def _check_case(case: str, mesh) -> dict:
+def _check_case(case: str, mesh, *, moe_buf: bool = False) -> dict:
+    """Forward, prefill and decode steps and a train step of ``case`` on
+    DTensors over ``mesh`` against the plain ones.  ``moe_buf`` turns on the
+    dry run's MoE ``buf`` hook for the forward and the train step; an MoE
+    case over a mesh with ``data`` also decodes one row with FSDP weights
+    (the rows come to the experts' shards)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models import whisper as W
     from repro_torch.serving import decode as D
@@ -112,8 +133,13 @@ def _check_case(case: str, mesh) -> dict:
         return T.forward(p, cfg, toks)[0]
 
     dparams = _distribute(params, mesh, SP.param_pspecs(params, mesh))
+    hook = {"buf": SP.P("data", None, None, None), "y": SP.P("data", None, None)}
     with implicit_replication():
-        out["forward"] = _err(fwd(dparams), fwd(params))
+        L.set_moe_pspecs(hook if moe_buf else None)
+        try:
+            out["forward"] = _err(fwd(dparams), fwd(params))
+        finally:
+            L.set_moe_pspecs(None)
 
     # prefill + one decode step, the cache batch-sharded (and for Llama
     # sequence-sharded at B = 1, with and without the selection)
@@ -125,7 +151,11 @@ def _check_case(case: str, mesh) -> dict:
     layouts = [("decode", b, scfg, False)]
     if case == "llama3-8b":
         layouts += [("decode-seq", 1, scfg, True), ("decode-seq-full", 1, None, True)]
+    if not whisper and cfg.n_experts and mesh.size(0) > 1:
+        layouts += [("decode-seq-fsdp", 1, scfg, True)]   # FSDP weights, one row (long_500k)
     for name, rows, sc, shard_seq in layouts:
+        if name.endswith("fsdp"):
+            d_kw = _distribute(kw_params, mesh, DR.param_shardings(kw_params, mesh, fsdp=True))
         enc = W.encode(params, cfg, frames[:rows]) if whisper else None
         cache = D.init_cache(cfg, rows, 32, kvswap=sc, device="cpu")
         specs = SP.cache_pspecs(cfg, mesh, shard_seq=shard_seq, kvswap=sc is not None)
@@ -174,7 +204,11 @@ def _check_case(case: str, mesh) -> dict:
     want = train(_clone(params))
     specs = DR.param_shardings(params, mesh, fsdp=True)
     with implicit_replication():
-        got = train(_distribute(_clone(params), mesh, specs))
+        L.set_moe_pspecs(hook if moe_buf else None)
+        try:
+            got = train(_distribute(_clone(params), mesh, specs))
+        finally:
+            L.set_moe_pspecs(None)
     for i, what in enumerate(("loss", "grads", "params")):
         out[f"train/{what}"] = _err(got[i], want[i])
     return out
@@ -191,8 +225,12 @@ def _rank_main(argv=None) -> None:
     torch.set_num_threads(1)            # four ranks on a shared host; the tensors are tiny
     dist.init_process_group("gloo", init_method=args.init, rank=args.rank, world_size=4)
     try:
-        mesh = make_mesh_auto((2, 2), ("data", "model"), device="cpu")
-        results = {case: _check_case(case, mesh) for case in CASES}
+        results = {}
+        for name, (shape, cases) in MESHES.items():
+            mesh = make_mesh_auto(shape, ("data", "model"), device="cpu")
+            for case in cases:
+                results[f"{name}/{case}"] = _check_case(
+                    case, mesh, moe_buf=name == "1x4" and case.startswith("llama4"))
         Path(args.out).write_text(json.dumps(results))
     finally:
         dist.destroy_process_group()
@@ -224,11 +262,22 @@ def four_ranks(tmp_path_factory):
 
 @pytest.mark.parametrize("case", CASES)
 def test_dtensor_steps_match_plain_over_2x2(four_ranks, case):
+    _hold(four_ranks, f"2x2/{case}")
+
+
+@pytest.mark.parametrize("case", CASES_1X4)
+def test_dtensor_steps_match_plain_over_1x4(four_ranks, case):
+    _hold(four_ranks, f"1x4/{case}")
+
+
+def _hold(four_ranks, key: str) -> None:
     for rank, res in enumerate(four_ranks):
-        assert res[case].keys() >= {"forward", "decode/prefill", "decode/step", "decode/cache",
-                                    "train/loss", "train/grads", "train/params"}
-        for what, (err, scale) in res[case].items():
-            assert err <= TOL * scale, (rank, case, what, err, scale)
+        assert res[key].keys() >= {"forward", "decode/prefill", "decode/step", "decode/cache",
+                                   "train/loss", "train/grads", "train/params"}
+        if key == "2x2/llama4-maverick-400b-a17b":
+            assert "decode-seq-fsdp/step" in res[key]
+        for what, (err, scale) in res[key].items():
+            assert err <= TOL * scale, (rank, key, what, err, scale)
 
 
 # --------------------------------------------------------------------------
@@ -255,9 +304,11 @@ def cut_registry(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", list(FAMILIES))
-def test_run_one_on_the_fake_world(cut_registry, arch):
-    """Decode at full width and depth cut, and train (xLSTM's train scan is
-    over the budget at 4096 tokens: it is reported ``not run``)."""
+def test_run_one_on_the_fake_world(cut_registry, monkeypatch, arch):
+    """Decode at full width and depth cut, and train (xLSTM's at 128 tokens:
+    its scans are traced token by token and chunk by chunk).  An xLSTM
+    prefill of 2^20 tokens would be over the trace budget: it is reported
+    ``not run``, naming the blocks that loop."""
     import torch.distributed as tdist
 
     res = DR.run_one(arch, "decode_32k", verbose=False)
@@ -265,13 +316,19 @@ def test_run_one_on_the_fake_world(cut_registry, arch):
     assert res.flops > 0 and res.bytes_accessed > 0 and res.lower_s > 0 and res.compile_s == 0
     assert res.memory["argument_bytes"] > 0 and res.memory["code_bytes"] == 0
     assert not tdist.is_initialized()
-    res = DR.run_one(arch, "train_4k", verbose=False)
     if arch == "xlstm-1.3b":
-        assert not res.ok and res.error.startswith("not run:")
-    else:
-        assert res.ok, res.error
-        assert res.collective_bytes > 0
+        monkeypatch.setitem(DR.SHAPES, "train_4k",
+                            dataclasses.replace(DR.SHAPES["train_4k"], seq_len=128))
+    res = DR.run_one(arch, "train_4k", verbose=False)
+    assert res.ok, res.error
+    assert res.collective_bytes > 0
     assert not tdist.is_initialized()
+    if arch == "xlstm-1.3b":
+        monkeypatch.setitem(DR.SHAPES, "prefill_32k",
+                            dataclasses.replace(DR.SHAPES["prefill_32k"], seq_len=2 ** 20))
+        res = DR.run_one(arch, "prefill_32k", verbose=False)
+        assert not res.ok and res.error.startswith("not run:"), res.error
+        assert "1 sLSTM blocks" in res.error and "7 mLSTM blocks" in res.error
 
 
 def test_llama_decode_collectives_follow_the_partition_rules(cut_registry):
@@ -292,6 +349,118 @@ def test_llama_decode_collectives_follow_the_partition_rules(cut_registry):
     assert c["total"] == res.collective_bytes == c["all-gather"] + c["all-reduce"]
     assert n == {"all-gather": 3 * layers, "all-reduce": 1 + 2 * layers, "reduce-scatter": 0,
                  "all-to-all": 0, "collective-permute": 0}
+
+
+def _layer_counts(build, step, x_shape, *, fsdp: bool = False, moe_buf: bool = False) -> dict:
+    """``step(params, x)`` on the fake 16x16 world at full width: ``build()``
+    (under fake tensors) lays the params out by the dry run's rules, ``x``
+    bf16 with its rows over ``data`` where they divide → ``DR.measure``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.mesh import fake_world, make_fake_production_mesh
+    from repro_torch.models import layers as L
+
+    with fake_world(256):
+        mesh = make_fake_production_mesh()
+        L.set_moe_pspecs({"buf": SP.P("data", None, None, None), "y": SP.P("data", None, None)}
+                         if moe_buf else None)
+        try:
+            with FakeTensorMode():
+                params = build()
+                x = torch.empty(x_shape, dtype=torch.bfloat16)
+                rows = "data" if x_shape[0] % 16 == 0 else None
+                return DR.measure(step, (params, x), (DR.param_shardings(params, mesh, fsdp=fsdp),
+                                                      SP.P(rows, None, None)), mesh)
+        finally:
+            L.set_moe_pspecs(None)
+
+
+def _layout(name: str):
+    """``(counts, expected all-gather / all-to-all / all-reduce bytes and
+    counts)`` of one layout, the expectation derived from the layout: rows
+    B 256 over 16 ``data`` → 16 a rank, ``model`` 16, bf16 activations,
+    fp32 state and statistics."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+
+    kw = dict(generator=torch.Generator(), device="cpu", dtype=torch.bfloat16)
+    rows, bf16, f32 = 16, 2, 4
+    if name == "whisper-attention":
+        # 20 heads of 64 over 16: q, k, v come whole (3 all-gathers of a
+        # rank's 80 columns); each rank attends with the 2 heads under its
+        # 80 output columns, which leave split: nothing else moves
+        s = 32
+        got = _layer_counts(
+            lambda: {"attn": L.init_attention(d_model=1280, n_heads=20, n_kv_heads=20,
+                                              head_dim=64, **kw)},
+            lambda p, x: L.attention(p["attn"], x, None, n_heads=20, n_kv_heads=20, head_dim=64,
+                                     attend=L.causal_attention)[0], (256, s, 1280))
+        flops = 3 * 2 * rows * s * 1280 * 80 + 2 * 2 * rows * 2 * s * s * 64
+        return got, {"all-gather": (3, 3 * rows * s * 80 * bf16)}, flops
+    if name == "mamba2-heads":
+        # Zamba2's mixer: in_proj's output whole (its 8384 columns, 524 a
+        # rank), the conv weights and biases whole (264 channels a rank),
+        # the gated norm's sum of squares over model, and the conv window of
+        # the rank's 256 x channels gathered for the cache: 5 all-gathers
+        s = 128
+        got = _layer_counts(lambda: {"mamba": S.init_mamba2(d_model=2048, d_state=64, **kw)},
+                            lambda p, x: S.mamba2_forward(p["mamba"], x)[0], (256, s, 2048))
+        nbytes = (rows * s * 524 * bf16 + 264 * 4 * bf16 + 264 * bf16 + rows * s * f32
+                  + rows * 256 * 3 * bf16)
+        return got, {"all-gather": (5, nbytes)}, None
+    if name == "xlstm-columns":
+        # mLSTM: q and k whole, v's 128 columns a rank (a quarter of a head
+        # of 512): the head norm's sums over [B, S, 4 heads] and the state
+        # (c's [1 head, 512, 128] a rank, n, m) gathered back whole.  sLSTM:
+        # w_x and w_h to gate-aligned columns by one all-to-all each, the i
+        # and f mean weights and biases summed over model, h [128, B]
+        # gathered every token, the norm's sums, then c, n, h and m; between
+        # the blocks the mLSTM's output, a partial sum over model, is reduced
+        s = 16
+        got = _layer_counts(
+            lambda: {"mlstm": S.init_mlstm(d_model=2048, n_heads=4, **kw),
+                     "slstm": S.init_slstm(d_model=2048, n_heads=4, **kw)},
+            lambda p, x: S.slstm_forward(p["slstm"], S.mlstm_forward(p["mlstm"], x)[0])[0],
+            (256, s, 2048))
+        m_bytes = (2 * rows * s * 128 * bf16 + rows * s * 4 * f32
+                   + rows * 512 * 128 * f32 + rows * 512 * f32 + rows * f32)
+        s_bytes = (2 * 2048 * 2 * 4 * bf16 + 2 * 4 * bf16 + s * 128 * rows * f32
+                   + rows * s * 4 * f32 + 3 * 128 * rows * f32 + rows * f32)
+        return got, {"all-gather": (6 + 24, m_bytes + s_bytes),
+                     "all-to-all": (2, 2 * 4 * 128 * 2048 * bf16),
+                     "all-reduce": (1, rows * s * 2048 * bf16)}, None
+    moe = lambda: {"blocks": [{"moe": L.init_moe(d_model=5120, d_ff=8192, n_experts=128, **kw)}]}
+    step = lambda p, x: L.moe(p["blocks"][0]["moe"], x, top_k=1)[0]
+    if name == "moe-buf":
+        # the buf hook: the experts' outputs (8 experts a rank, capacity 1 at
+        # 64 tokens) gathered whole before the combine, and the loss
+        # statistics' one all-reduce
+        got = _layer_counts(moe, step, (256, 64, 5120), moe_buf=True)
+        return got, {"all-gather": (1, rows * 8 * 1 * 5120 * bf16),
+                     "all-reduce": (1, 128 * f32)}, None
+    # one row, FSDP: the experts stay split over data; the row comes to them
+    # and each rank's gate and up products are summed over data (2
+    # all-gathers of [8 experts, 8192]), the router gathered over data,
+    # and the statistics reduced over both axes
+    got = _layer_counts(moe, step, (1, 1, 5120), fsdp=True)
+    return got, {"all-gather": (3, 5120 // 16 * 128 * bf16 + 2 * 8 * 8192 * bf16),
+                 "all-reduce": (2, 2 * 128 * f32)}, None
+
+
+@pytest.mark.parametrize("name", ["whisper-attention", "mamba2-heads", "xlstm-columns",
+                                  "moe-buf", "moe-fsdp-one-row"])
+def test_layout_collectives_follow_the_layout(name):
+    """Each layout that splits what the partition rules leave whole, on
+    one layer at full width over 16x16: the collectives it runs, counted
+    from the layout (and for the column layout its FLOPs)."""
+    got, want, flops = _layout(name)
+    c = got["collectives"]
+    for kind in ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                 "collective-permute"):
+        n, nbytes = want.get(kind, (0, 0))
+        assert (c["_counts"][kind], c[kind]) == (n, nbytes), (name, kind, c)
+    if flops is not None:
+        assert got["flops"] == flops
 
 
 def test_one_rank_dry_run_counts_the_plain_step():
