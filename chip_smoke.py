@@ -286,6 +286,12 @@ DRYRUN_CHILDREN = ([(LLAMA, "train_4k", False), (LLAMA, "decode_32k", False),
                    [(WHISPER, "decode_32k", False), (XLSTM, "decode_32k", False),
                     (ZAMBA, "prefill_32k", False)])
 DRYRUN_TIMEOUT = 300
+# the one-token layouts repaired against the reference (PERF.md §6): per
+# rank on 16x16, each held to its limit — the sLSTM's collectives, the FSDP
+# vocab table's and Whisper's cross K/V's temp
+DRYRUN_LIMITS = {(XLSTM, "decode_32k"): ("collective_bytes", 8.9e6),
+                 (MAVERICK, "long_500k"): ("temp_bytes", 1.62e8),
+                 (WHISPER, "decode_32k"): ("temp_bytes", 2.03e9)}
 # --parent: the device-path steps of both trees, each in a child process
 PARENT_LLAMA_LAYERS = 8
 PARENT_STEP_TIMEOUT = 300
@@ -1857,6 +1863,7 @@ def seqshard_phase(dev, card) -> dict:
         steps = [statistics.median(r["step_ms"]) for r in results]
         ranks_ms = ", ".join(f"{t:.3f}" for t in steps)
         score_us = ", ".join(f"{r['score_ms'] * 1e3:.2f}" for r in results)
+        plain_us = ", ".join(f"{r['plain_ms'] * 1e3:.2f}" for r in results)
         combine_ms = ", ".join(f"{r['combine_ms']:.3f}" for r in results)
         bound_us = ", ".join(f"{spec.b * r['valid'] * spec.r * 4 / HBM_BYTES_PER_S * 1e6:.2f}"
                              for r in results)
@@ -1866,7 +1873,7 @@ def seqshard_phase(dev, card) -> dict:
               f"{big:.3g}); step median {max(steps):.3f} ms over {SEQSHARD_REPS} calls (the "
               f"slowest rank's; ranks {ranks_ms}); kernel A alone a shard (one rank at a "
               f"time) {score_us} us against bounds of {bound_us} us (the shard's valid tokens x "
-              f"r x 4 B over 3.35 TB/s); combine {combine_ms} "
+              f"r x 4 B over 3.35 TB/s), its plain version {plain_us} us; combine {combine_ms} "
               f"ms, {results[0]['combine_bytes']} B into the all_reduces a rank; launches "
               f"{[r['launches'] for r in results]}; selections flipped against the plain "
               f"scores {sum(len(r['flips']) for r in results)}  [{card}]", flush=True)
@@ -2064,6 +2071,10 @@ def dryrun_phase(dev, card) -> dict:
               f"{m.get('temp_bytes')} B; {r['error'][:300]}  [CPU, torch {torch.__version__}]",
               flush=True)
         check(r["ok"], f"dry run {r['arch']} x {r['shape']} x {r['mesh']} failed: {r['error']}")
+        if (r["arch"], r["shape"]) in DRYRUN_LIMITS and r["mesh"] == "16x16":
+            key, limit = DRYRUN_LIMITS[(r["arch"], r["shape"])]
+            got_v = r[key] if key in r else r["memory"][key]
+            check(got_v <= limit, f"dry run {r['arch']} x {r['shape']}: {key} {got_v} > {limit}")
     print(f"dry run: {len(results)} combinations in {len(procs)} child processes, "
           f"{wall:.1f} s of wall", flush=True)
 

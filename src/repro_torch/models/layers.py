@@ -28,8 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.sharding.partition import (P, axis_index, axis_size, batch_axes, constrain,
-                                            local_region, mesh_of, partial_placements, shard_dim,
-                                            split_axes, sum_over)
+                                            gather_over, local_region, mesh_of, partial_placements,
+                                            shard_dim, split_axes, sum_over)
 
 # --------------------------------------------------------------------------
 # norms
@@ -90,13 +90,20 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``embed[tokens]``; on DTensors a vocab-parallel lookup on each rank's
     shard: the table's rows over ``model`` (where they divide), each rank
     looking up the tokens in its rows (0 elsewhere), the rows of ``tokens``
-    over the batch axes, the result a partial sum over ``model``."""
+    over the batch axes, the result a partial sum over ``model``.  For a few
+    tokens (:func:`moves_activations`) a table split over ``data`` as well
+    (FSDP) stays where it is: every token comes to each rank's block ``[V/m,
+    D/d]``, and the looked-up rows leave split over ``data`` along ``D``."""
 
     def layout(mesh):
-        dp = split_axes(mesh, batch_axes(mesh), tokens.shape[0])
         m = split_axes(mesh, "model", embed.shape[0])
-        return ([P(m, None), P(dp)], partial_placements(mesh, P(dp), m),
-                {"v0": axis_index(mesh, m) * (embed.shape[0] // axis_size(mesh, m))})
+        kw = {"v0": axis_index(mesh, m) * (embed.shape[0] // axis_size(mesh, m))}
+        if moves_activations(mesh, tokens.numel(), embed, 1,
+                             embed.shape[1] // axis_size(mesh, "data")):
+            return ([P(m, "data"), P()],
+                    partial_placements(mesh, P(*[None] * tokens.dim(), "data"), m), kw)
+        dp = split_axes(mesh, batch_axes(mesh), tokens.shape[0])
+        return [P(m, None), P(dp)], partial_placements(mesh, P(dp), m), kw
 
     return local_region(_embed_rows, (embed, tokens), layout)
 
@@ -111,15 +118,28 @@ def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor, *, v0: int | None = N
     return embed[local.clamp(0, embed.shape[0] - 1)] * mine[..., None].to(embed.dtype)
 
 
-def moves_activations(mesh, tokens: int, w: torch.Tensor, w_dim: int, moved: int) -> bool:
-    """Whether a product of ``tokens`` rows with FSDP weight ``w`` (dim
-    ``w_dim`` split over ``data``) should bring the rows to the weight's
-    shards instead of gathering the weight: when the ``moved`` elements a
-    token sends (its slice in, its partial sum out) for every token are
-    fewer than the elements of ``w``'s local shard (a decode step)."""
-    return (shard_dim(w, "data") == w_dim
-            and tokens * moved < w.numel() // (axis_size(mesh, "data")
-                                                * axis_size(mesh, "model")))
+def moves_activations(mesh, tokens: int, w: torch.Tensor, w_dim: int, moved: int,
+                      axis: str = "data") -> bool:
+    """Whether a product of ``tokens`` rows with weight ``w`` (dim ``w_dim``
+    split over mesh axis ``axis``: ``data`` for FSDP) should bring the rows
+    to the weight's shards, or move them between its shards, instead of
+    moving the weight: when the ``moved`` elements a token sends (its slice
+    in, its partial sum out) for every token are fewer than the elements of
+    ``w``'s local shard (a decode step)."""
+    return shard_dim(w, axis) == w_dim and tokens * moved < _shard_numel(w)
+
+
+def _shard_numel(w: torch.Tensor) -> int:
+    """The elements of one rank's shard of DTensor ``w`` (of ``w`` itself
+    for a plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    n = w.numel()
+    if isinstance(w, DTensor):
+        for i, p in enumerate(w.placements):
+            if isinstance(p, Shard):
+                n //= w.device_mesh.size(i)
+    return n
 
 
 def linear_cols(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -359,6 +379,53 @@ def attend_heads(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_heads:
 
     return local_region(functools.partial(_attend_local, attend=attend,
                                           rep=n_heads // k.shape[2]), (qf, k, v), layout)
+
+
+def _attend_flat_local(qf, kf, vf, *, attend, head_dim: int, rep: int,
+                       kv_from: int | None = None, cols: tuple | None = None,
+                       gather: tuple | None = None):
+    """:func:`_attend_local` over the flat K/V projections ``kf/vf [B, Sk,
+    Hk·d]``.  With ``gather = (mesh, kv_split)`` (the column layout)
+    ``qf`` — and ``kf/vf`` where ``kv_split`` — are this rank's columns:
+    each is gathered over ``model`` and only the heads that cover ``cols``
+    are kept."""
+    if gather is None:
+        k, v = (t.reshape(*t.shape[:-1], -1, head_dim) for t in (kf, vf))
+        return _attend_local(qf, k, v, attend=attend, rep=rep, kv_from=kv_from, cols=cols)
+    mesh, kv_split = gather
+    qf, kv, off = _column_heads(gather_over(qf, mesh, "model", -1), cols, head_dim, rep)
+
+    def heads(t):                 # the whole projection lives only until its heads are taken
+        if kv_split:
+            t = gather_over(t, mesh, "model", -1)
+        return t.reshape(*t.shape[:-1], -1, head_dim).index_select(-2, kv)
+
+    o = attend(qf.reshape(*qf.shape[:-1], -1, head_dim), heads(kf), heads(vf))
+    return o.reshape(*o.shape[:-2], -1)[..., off:off + cols[1]]
+
+
+def attend_flat(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, *, n_heads: int,
+                n_kv_heads: int, head_dim: int, attend) -> torch.Tensor:
+    """``attend`` of the flat queries ``qf [B, S, H·d]`` over the flat K/V
+    projections ``kf/vf [B, Sk, Hk·d]`` → ``[B, S, H·d]``, laid out on
+    DTensors as :func:`attend_heads`, but under the column layout
+    (:func:`column_layout`) the queries, keys and values come as this
+    rank's columns of their projections: each rank gathers them inside and
+    keeps only the heads under its columns, one projection whole at a time."""
+
+    def layout(mesh):
+        dp, hq, hkv, h0 = head_layout(mesh, qf.shape[0], n_heads, n_kv_heads)
+        cols = column_layout(mesh, n_heads, head_dim)
+        if cols is not None:
+            kv = split_axes(mesh, "model", kf.shape[-1])
+            return ([P(dp, None, "model"), P(dp, None, kv), P(dp, None, kv)],
+                    P(dp, None, "model"), {"cols": cols, "gather": (mesh, kv is not None)})
+        kv = P(dp, None, hkv)
+        return ([P(dp, None, hq), kv, kv], P(dp, None, hq),
+                {"kv_from": h0 if hq is not None and hkv is None else None})
+
+    return local_region(functools.partial(_attend_flat_local, attend=attend, head_dim=head_dim,
+                                          rep=n_heads // n_kv_heads), (qf, kf, vf), layout)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, linear_cols, linear_rows, rmsnorm
+from repro_torch.models.layers import (dense_init, linear_cols, linear_rows, moves_activations,
+                                       rmsnorm)
 from repro_torch.sharding.partition import (P, axis_index, axis_size, batch_axes, gather_over,
                                             local_region, mesh_of, split_axes, sum_over)
 
@@ -618,10 +619,13 @@ def slstm_forward(p, x: torch.Tensor, state: dict | None = None):
     """``x [B,S,D]`` → ``(y [B,S,D], state)``: the input projection ``x @
     w_x`` for every token at once, then the recurrence one token at a time
     (:func:`_slstm_scan`).  On DTensors each rank runs its columns of every
-    gate (:func:`head_slices` of ``D``; the weights brought to that layout
-    by one all-to-all each), the hidden state gathered over ``model`` each
-    token, the i and f gates' mean weights summed over the ranks that share
-    a head; the state comes back whole."""
+    gate (:func:`head_slices` of ``D``), the hidden state gathered over
+    ``model`` each token, the i and f gates' head means summed over the
+    ranks that share a head; the state comes back whole.  Many tokens bring
+    the weights to that layout, by one all-to-all each; a few tokens
+    (:func:`~repro_torch.models.layers.moves_activations`) leave the
+    weights where they are and bring each token's pre-activations there
+    instead, by one all-to-all a token."""
     if state is None:
         state = slstm_init_state(p, x.shape[0])
     n_heads, d = state["m"].shape[1], x.shape[-1]
@@ -633,44 +637,53 @@ def slstm_forward(p, x: torch.Tensor, state: dict | None = None):
         if heads is None or cols is None:
             return [P()] * 4 + [P(dp), P(dp)], [P(dp)] * 5, {}
         w = P(None, "model")
+        tokens = x.shape[0] // axis_size(mesh, dp) * x.shape[1]
+        acts = moves_activations(mesh, tokens, p["w_x"], 1, 4 * d // axis_size(mesh, "model"),
+                                 axis="model")
         return ([w, w, P(), P(), P(dp), P(dp)], [P(dp, None, "model")] + [P(dp)] * 4,
-                {"split": (mesh, *heads, d // n_heads)})
+                {"split": (mesh, *heads, d // n_heads), "acts": acts})
 
     hs, state = local_region(_slstm_scan, (*(p[k] for k in _SLSTM), x, state), layout)
     return linear_rows(hs, p["wo"]), state
 
 
-def _gate_columns(w: torch.Tensor, mesh) -> torch.Tensor:
-    """A ``[in, 4·D]`` weight split over ``model`` by columns (this rank's
-    ``w [in, 4·D/m]``) → this rank's columns ``[j·D/m, (j + 1)·D/m)`` of
-    each of the four gates ``[in, 4, D/m]``, by one all-to-all over
-    ``model``."""
+def _to_gates(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t [4·D/m, ...]``: this rank's columns of a ``[..., 4·D]`` tensor
+    split over ``model`` (its ``4·D/m`` of the four gates ``[z, i, f, o]``),
+    as rows → ``[4, D/m, ...]``: this rank's columns ``[j·D/m, (j + 1)·D/m)``
+    of each gate, by one all-to-all over ``model``."""
     from torch.distributed._functional_collectives import all_to_all_single_autograd
 
     m, r = axis_size(mesh, "model"), axis_index(mesh, "model")
-    u = w.shape[1] // 4
-    # chunk k of this rank's columns is column block 4r + k of the 4m blocks
-    # of u: gate (4r + k) // m, for rank (4r + k) % m
+    u = t.shape[0] // 4
+    # chunk k of this rank's rows is column block 4r + k of the 4m blocks of
+    # u: gate (4r + k) // m, for rank (4r + k) % m; a rank receives its
+    # blocks r, r + m, r + 2m, r + 3m in the senders' order, gate by gate
     dest = [(4 * r + k) % m for k in range(4)]
     order = sorted(range(4), key=lambda k: dest[k])
-    send = torch.cat([w[:, k * u:(k + 1) * u].T for k in order])        # [4u, in]
+    send = torch.cat([t[k * u:(k + 1) * u] for k in order])
     n_in = [dest.count(j) * u for j in range(m)]
     n_out = [sum(((4 * src + k) % m) == r for k in range(4)) * u for src in range(m)]
     got = all_to_all_single_autograd(send.contiguous(), n_out, n_in,
                                      (mesh, mesh.mesh_dim_names.index("model")))
-    return got.reshape(4, u, w.shape[0]).permute(2, 0, 1)                # [in, 4, u]
+    return got.reshape(4, u, *t.shape[1:])
 
 
-def _slstm_scan(w_x, w_h, b, norm, x: torch.Tensor, state: dict, *, split: tuple | None = None):
+def _slstm_scan(w_x, w_h, b, norm, x: torch.Tensor, state: dict, *, split: tuple | None = None,
+                acts: bool = False):
     """:func:`slstm_forward` before ``wo`` on one rank → ``(hs [B,S,·]``
     normed, the whole new state).  With ``split = (mesh, h0, nh, e0, el,
     head)`` only heads ``[h0, h0 + nh)`` and columns ``[e0, e0 + el)`` of
-    each run (``w_x``, ``w_h`` this rank's columns of ``[D, 4·D]``).
+    each run (``w_x``, ``w_h`` this rank's columns of ``[D, 4·D]``): the
+    weights are brought to those columns (:func:`_to_gates`), or with
+    ``acts`` each token's pre-activations ``x @ w_x + h @ w_h + b`` over
+    this rank's columns are.
 
     The input and forget gates enter the cell only through their head
     means, and a mean of products is the product with the mean weights: so
     the projections carry the z and o gates' columns and one mean column of
-    i and of f a head.  The recurrence runs on the state transposed,
+    i and of f a head (with ``acts``, the means are taken of the
+    pre-activations).  The recurrence runs on the state transposed,
     ``[heads, columns, B]``, so that the hidden state gathered over
     ``model`` is already ``h [D, B]``."""
     bsz, s, dmod = x.shape
@@ -682,8 +695,9 @@ def _slstm_scan(w_x, w_h, b, norm, x: torch.Tensor, state: dict, *, split: tuple
     else:
         mesh, h0, nh, e0, el, _ = split
         j = axis_index(mesh, "model")
-        wx, wh = _gate_columns(w_x, mesh), _gate_columns(w_h, mesh)
-        bb = b.reshape(4, dmod)[:, j * nh * el:(j + 1) * nh * el]
+        if not acts:
+            wx, wh = (_to_gates(w.T, mesh).permute(2, 0, 1) for w in (w_x, w_h))  # [D, 4, u]
+            bb = b.reshape(4, dmod)[:, j * nh * el:(j + 1) * nh * el]
     u = nh * el
 
     def gates(w):        # [..., 4, u] → [..., 2u + 2nh]: z, o, then i's and f's head means
@@ -693,8 +707,13 @@ def _slstm_scan(w_x, w_h, b, norm, x: torch.Tensor, state: dict, *, split: tuple
         return torch.cat([w[..., 0, :], w[..., 3, :], (means / hd).flatten(-2)], dim=-1)
 
     cdt = torch.promote_types(torch.promote_types(w_h.dtype, state["h"].dtype), x.dtype)
-    gx = (x @ gates(wx) + gates(bb)).to(cdt).permute(1, 2, 0).contiguous()   # [S, 2u+2nh, B]
-    wh_t = gates(wh).to(cdt).T.contiguous()                                   # [2u+2nh, D]
+    if acts:             # this rank's stored columns: 4u of them, [4u·j, 4u·(j + 1))
+        gx = (x @ w_x + b[4 * u * j:4 * u * (j + 1)]).to(cdt).permute(1, 2, 0)    # [S, 4u, B]
+        wh_t = w_h.to(cdt).T.contiguous()                                         # [4u, D]
+        no_w, no_h = gx.new_empty(2 * u + 2 * nh, 0), gx.new_empty(0, bsz)
+    else:
+        gx = (x @ gates(wx) + gates(bb)).to(cdt).permute(1, 2, 0).contiguous()  # [S, 2u+2nh, B]
+        wh_t = gates(wh).to(cdt).T.contiguous()                                  # [2u+2nh, D]
     cols = slice(j * u, (j + 1) * u)
     mine = lambda t: t.reshape(bsz, dmod)[:, cols].T.to(cdt)                  # [u, B]
     # the state packed as one tensor [c; n; h; m] of [3u + nh, B]
@@ -709,8 +728,13 @@ def _slstm_scan(w_x, w_h, b, norm, x: torch.Tensor, state: dict, *, split: tuple
         whole = lambda t: torch.ops._c10d_functional_autograd.all_gather_into_tensor(
             t, size, group)
     sts = []
-    for gx_t in gx.unbind(0):                 # one token at a time: nothing else per token
-        st = _slstm_cell_op(gx_t, wh_t, whole(st[2 * u:3 * u]), st, nh, split is not None)
+    for gx_t in gx.unbind(0):                 # one token at a time
+        if acts:                              # the gate-aligned pre-activations, then the cell
+            a = torch.addmm(gx_t, wh_t, _gathered(whole(st[2 * u:3 * u]), True))
+            g = gates(_to_gates(a, mesh).permute(2, 0, 1)).T                 # [2u + 2nh, B]
+            st = _slstm_cell_op(g.contiguous(), no_w, no_h, st, nh, False)
+        else:
+            st = _slstm_cell_op(gx_t, wh_t, whole(st[2 * u:3 * u]), st, nh, split is not None)
         sts.append(st)
     hs = torch.stack(sts)[:, 2 * u:3 * u].reshape(s, nh, el, bsz).permute(3, 0, 1, 2)  # [B,S,nh,el]
     c, n, h, m = st[:u], st[u:2 * u], st[2 * u:3 * u], st[3 * u:]
@@ -759,7 +783,9 @@ def _slstm_cell_op(gx: torch.Tensor, w_t: torch.Tensor, h: torch.Tensor, st: tor
                    nh: int, gathered: bool) -> torch.Tensor:
     """One token of the recurrence as one operation: ``g = gx + w_t @ h``
     (``h [D, B]`` the whole hidden state, a pending all-gather's output
-    when ``gathered``), then :func:`_slstm_cell_math`.  Its gradient is one
+    when ``gathered``), then :func:`_slstm_cell_math`; ``w_t [·, 0]`` and
+    ``h [0, B]`` (an empty product) when ``gx`` already holds the whole
+    pre-activations.  Its gradient is one
     more (:func:`_slstm_cell_grad`), and its FLOPs are counted by the
     formulas registered below: a token's trace is a few dispatches instead
     of some fifty."""

@@ -124,17 +124,27 @@ def cross_kv(params, cfg: WhisperConfig, enc_out: torch.Tensor) -> list:
             for blk in params["dec_blocks"]]
 
 
-def cross_and_mlp(blk, cfg: WhisperConfig, x: torch.Tensor, ck: torch.Tensor,
-                  cv: torch.Tensor) -> torch.Tensor:
-    """A decoder block's cross-attention over ``(ck, cv)`` and its MLP, each
-    with its residual: ``x [B, S, D]``, or ``[B, D]`` for one decode token."""
+def cross_and_mlp(blk, cfg: WhisperConfig, x: torch.Tensor, ck: torch.Tensor | None = None,
+                  cv: torch.Tensor | None = None, *,
+                  enc_out: torch.Tensor | None = None) -> torch.Tensor:
+    """A decoder block's cross-attention over ``(ck, cv)`` (:func:`cross_kv`)
+    and its MLP, each with its residual: ``x [B, S, D]``, or ``[B, D]`` for
+    one decode token.  With ``enc_out`` instead, the block's cross K and V
+    are built here, for this block alone; on DTensors each rank then keeps
+    only the heads under its columns of ``wo`` (:func:`repro_torch.models.
+    layers.attend_flat`)."""
     hc = L.layernorm(blk["ln_cross"], x)
     qc = L.linear_cols(hc, blk["cross"]["wq"])
     if hc.dim() == 2:                    # decode: add a seq axis
-        oc = L.attend_heads(qc[:, None], ck, cv, n_heads=cfg.n_heads,
-                            attend=L.bidirectional_attention)[:, 0]
-    else:
+        qc = qc[:, None]
+    if enc_out is None:
         oc = L.attend_heads(qc, ck, cv, n_heads=cfg.n_heads, attend=L.bidirectional_attention)
+    else:
+        kf, vf = (L.linear_cols(enc_out, blk["cross"][w]) for w in ("wk", "wv"))
+        oc = L.attend_flat(qc, kf, vf, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                           head_dim=cfg.head_dim, attend=L.bidirectional_attention)
+    if hc.dim() == 2:
+        oc = oc[:, 0]
     x = x + like(L.linear_rows(oc, blk["cross"]["wo"]), x)
     return x + like(L.gelu_mlp(blk["mlp"], L.layernorm(blk["ln_mlp"], x)), x)
 

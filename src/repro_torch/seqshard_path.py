@@ -149,11 +149,11 @@ def run_rank(spec: SeqShardSpec, mesh, cases: list[dict], *, device=None, axis: 
     CPU), ``valid`` (the shard's tokens inside the context), ``launches``
     (kernel A's, from 0 over the case's ``1 + reps`` calls), ``flips``
     (:func:`_flips`) and ``step_ms`` (each timed call's synchronised wall);
-    with ``reps``, also ``score_ms`` (kernel A alone on this shard,
-    :func:`_kernel_ms`, one rank after the other: the chip run's ranks share
-    one card), ``combine_ms`` (median wall of the combine alone) and
-    ``combine_bytes`` (what this rank sends into its two ``all_reduce``
-    calls)."""
+    with ``reps``, also ``score_ms`` and ``plain_ms`` (kernel A and its
+    plain version alone on this shard, :func:`_kernel_ms`, one rank after
+    the other: the chip run's ranks share one card), ``combine_ms``
+    (median wall of the combine alone) and ``combine_bytes`` (what this
+    rank sends into its two ``all_reduce`` calls)."""
     dev = resolve(device)
     dim = mesh.mesh_dim_names.index(axis)
     world, rank, group = mesh.size(dim), mesh.get_local_rank(dim), mesh.get_group(dim)
@@ -183,6 +183,8 @@ def run_rank(spec: SeqShardSpec, mesh, cases: list[dict], *, device=None, axis: 
                 dist.barrier(group=group)
                 if turn == rank:
                     res["score_ms"] = _kernel_ms(score, dev, reps)
+                    res["plain_ms"] = _kernel_ms(lambda: ops.lowrank_group_scores_plain(
+                        rep["q_lr"], k_lr, valid, group_size=g), dev, reps)
             dist.barrier(group=group)
             gids, ok = SD.shard_select(score(), quota)
             k_sel, v_sel, mask = SD.select_tokens(k, v, gids, ok, start, length, g)

@@ -445,7 +445,6 @@ def serve_step(params, cfg, tokens: torch.Tensor, cache: dict, *,
     if whisper:
         pe = W.sinusoid_positions(pos, cfg.d_model).to(params["embed"].dtype)
         x = rows(L.embed_lookup(params["embed"], tokens[:, 0]) + pe)
-        ckv = W.cross_kv(params, cfg, enc_out)
     else:
         x = rows(L.embed_lookup(params["embed"], tokens[:, 0]))
     layers = cache["layers"]
@@ -474,7 +473,8 @@ def serve_step(params, cfg, tokens: torch.Tensor, cache: dict, *,
                 rope_theta=None if whisper else cfg.rope_theta, qk_norm=qk_norm)
             x = x + like(L.linear_rows(o, attn_p["wo"]), x)
             if whisper:
-                x = W.cross_and_mlp(params["dec_blocks"][i], cfg, x, *ckv[i])
+                # this block's cross K/V, built here: one block's are live at a time
+                x = W.cross_and_mlp(params["dec_blocks"][i], cfg, x, enc_out=enc_out)
             else:
                 h2 = L.rmsnorm(mlp_holder["mlp_norm"], x)
                 if kind == "moe_attn":    # one token a row, routed as a call of S = 1

@@ -211,6 +211,13 @@ def _check_case(case: str, mesh, *, moe_buf: bool = False) -> dict:
             L.set_moe_pspecs(None)
     for i, what in enumerate(("loss", "grads", "params")):
         out[f"train/{what}"] = _err(got[i], want[i])
+    if "slstm" in (getattr(cfg, "block_pattern", None) or ()):
+        # 64 tokens a row reach the sLSTM's weight shard (D rows): the weights
+        # move to gate-aligned columns, where the steps above move activations
+        long = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (b, 64)))
+        with implicit_replication():
+            out["forward-weights"] = _err(T.forward(dparams, cfg, long)[0],
+                                          T.forward(params, cfg, long)[0])
     return out
 
 
@@ -276,6 +283,8 @@ def _hold(four_ranks, key: str) -> None:
                                    "train/loss", "train/grads", "train/params"}
         if key == "2x2/llama4-maverick-400b-a17b":
             assert "decode-seq-fsdp/step" in res[key]
+        if "xlstm" in key:
+            assert "forward-weights" in res[key]
         for what, (err, scale) in res[key].items():
             assert err <= TOL * scale, (rank, key, what, err, scale)
 
@@ -411,11 +420,13 @@ def _layout(name: str):
     if name == "xlstm-columns":
         # mLSTM: q and k whole, v's 128 columns a rank (a quarter of a head
         # of 512): the head norm's sums over [B, S, 4 heads] and the state
-        # (c's [1 head, 512, 128] a rank, n, m) gathered back whole.  sLSTM:
-        # w_x and w_h to gate-aligned columns by one all-to-all each, the i
-        # and f mean weights and biases summed over model, h [128, B]
-        # gathered every token, the norm's sums, then c, n, h and m; between
-        # the blocks the mLSTM's output, a partial sum over model, is reduced
+        # (c's [1 head, 512, 128] a rank, n, m) gathered back whole.  sLSTM
+        # at 16 rows x 16 tokens, fewer than its weight shard's 2048 rows
+        # (moves_activations): each token's pre-activations over the rank's
+        # 512 columns to gate-aligned columns by one all-to-all, h [128, B]
+        # gathered and the i and f head means summed over model every token,
+        # the norm's sums, then c, n, h and m; between the blocks the
+        # mLSTM's output, a partial sum over model, is reduced
         s = 16
         got = _layer_counts(
             lambda: {"mlstm": S.init_mlstm(d_model=2048, n_heads=4, **kw),
@@ -424,10 +435,10 @@ def _layout(name: str):
             (256, s, 2048))
         m_bytes = (2 * rows * s * 128 * bf16 + rows * s * 4 * f32
                    + rows * 512 * 128 * f32 + rows * 512 * f32 + rows * f32)
-        s_bytes = (2 * 2048 * 2 * 4 * bf16 + 2 * 4 * bf16 + s * 128 * rows * f32
+        s_bytes = (s * 128 * rows * f32 + s * rows * 2 * 4 * f32
                    + rows * s * 4 * f32 + 3 * 128 * rows * f32 + rows * f32)
-        return got, {"all-gather": (6 + 24, m_bytes + s_bytes),
-                     "all-to-all": (2, 2 * 4 * 128 * 2048 * bf16),
+        return got, {"all-gather": (6 + 2 * s + 5, m_bytes + s_bytes),
+                     "all-to-all": (s, s * 4 * 128 * rows * f32),
                      "all-reduce": (1, rows * s * 2048 * bf16)}, None
     moe = lambda: {"blocks": [{"moe": L.init_moe(d_model=5120, d_ff=8192, n_experts=128, **kw)}]}
     step = lambda p, x: L.moe(p["blocks"][0]["moe"], x, top_k=1)[0]
