@@ -1,0 +1,8 @@
+"""Idle device time a decode step of the window while the main thread was in
+the predictor's phases (``predict``, ``readback``, ``quality``), in ms."""
+
+from kvbench.phase_reduce import per_step_ms
+
+
+def read(rec):
+    return per_step_ms(rec, "predictor")

@@ -406,7 +406,7 @@ class PrefixCache:
         hkv, d = geo.n_kv_heads, geo.head_dim
         obs = self._obs
         if obs is not None:
-            r0 = obs.tracer.now_wall()
+            r0 = obs.tracer.now_ns()
         k = np.empty((geo.n_layers, n_tok, hkv, d), dtype=geo.np_dtype)
         v = np.empty_like(k)
         for layer in range(geo.n_layers):
@@ -416,7 +416,7 @@ class PrefixCache:
         if obs is not None:
             obs.tracer.add(
                 "restore_chain", "prefix-cache", cat="prefix",
-                wall_t0=r0, wall_dur=obs.tracer.now_wall() - r0,
+                wall_t0_ns=r0, wall_t1_ns=obs.tracer.now_ns(),
                 args={"blocks": len(metas), "tokens": n_tok,
                       "layers": geo.n_layers})
             self._m["restored_tokens"].inc(n_tok)

@@ -412,6 +412,7 @@ class KVSwapEngine:
         self._dev_ready = False
         self._h2d_step = 0
         self._step_active = np.zeros(batch, dtype=bool)
+        self._obs_at = {"step": 0}    # the args of the current step's phase spans
         # an observer of decode: ``layer_hook(layer, x, pos, table)`` is
         # called as each KV layer's attention starts, with its input, the
         # rows' positions and the layer's MappingTable (this step's selection)
@@ -479,7 +480,7 @@ class KVSwapEngine:
             batch=self.batch if batch is None else batch)
 
     def _admission_report(self, *, s: int, n_cached: int, tr, wall: float,
-                          row: int | None = None) -> None:
+                          wall_t0_ns: int, row: int | None = None) -> None:
         """Modeled + measured accounting of one admission (cold or warm).
 
         ``modeled_seconds`` charges restore reads, store writes and (chunked)
@@ -503,18 +504,18 @@ class KVSwapEngine:
             rep["row"] = row
         self.prefill_report = rep
         self.admit_log.append(dict(rep))
-        self._obs_admission("prefill" if row is None else "admit_row", rep)
+        self._obs_admission("prefill" if row is None else "admit_row", rep, wall_t0_ns)
 
-    def _obs_admission(self, name: str, rep: dict) -> None:
-        """Admission span on both clocks + admission counters."""
+    def _obs_admission(self, name: str, rep: dict, wall_t0_ns: int) -> None:
+        """Admission span on both clocks (the wall one from the
+        admission's first reading) + admission counters."""
         obs = self.obs
         if not obs.enabled:
             return
         t0, _ = obs.advance_model(rep["modeled_seconds"])
         obs.tracer.add(
             name, "engine-step", cat="admission",
-            wall_t0=max(0.0, obs.tracer.now_wall() - rep["wall_seconds"]),
-            wall_dur=rep["wall_seconds"],
+            wall_t0_ns=wall_t0_ns, wall_t1_ns=obs.tracer.now_ns(),
             model_t0=t0, model_dur=rep["modeled_seconds"],
             args={k: rep[k] for k in ("prompt_tokens", "cached_tokens", "row")
                   if k in rep})
@@ -594,6 +595,7 @@ class KVSwapEngine:
         """Run full-attention prefill of every row, spill KV to disk layer by
         layer, build the compressed K cache.  Returns last-position logits
         ``[B, V]`` on the device."""
+        w0 = self.obs.tracer.now_ns() if self.obs.enabled else 0
         t0 = time.perf_counter()
         self._reset_device_state()   # mirrors rebuilt at first decode
         tokens_np = np.asarray(tokens)
@@ -607,7 +609,8 @@ class KVSwapEngine:
             x = self._prefill_layers(tokens_np, s)
         self._activate_all(s)
         logits = self.model.logits(self.params, x[:, -1])
-        self._admission_report(s=s, n_cached=0, tr=tr, wall=time.perf_counter() - t0)
+        self._admission_report(s=s, n_cached=0, tr=tr, wall=time.perf_counter() - t0,
+                               wall_t0_ns=w0)
         return logits
 
     def _activate_all(self, s: int) -> None:
@@ -644,6 +647,7 @@ class KVSwapEngine:
         cached prefix (minimum over rows).  Hybrid models fall back to cold
         prefill: recurrent state lives outside the KV cache.
         """
+        w0 = self.obs.tracer.now_ns() if self.obs.enabled else 0
         t0 = time.perf_counter()
         tokens_np = np.asarray(tokens)
         b, s = tokens_np.shape
@@ -696,7 +700,7 @@ class KVSwapEngine:
         self._prompt_np = tokens_np
         logits = self.model.logits(self.params, x[:, -1])
         self._admission_report(s=s, n_cached=n_cached, tr=tr,
-                               wall=time.perf_counter() - t0)
+                               wall=time.perf_counter() - t0, wall_t0_ns=w0)
         return logits
 
     def _restore_prefix(self, cache, tokens_np: np.ndarray, s: int):
@@ -745,6 +749,7 @@ class KVSwapEngine:
             raise ValueError("empty prompt")
         if s > self.cap_tokens:
             raise RuntimeError("prompt exceeds KV capacity; raise cfg.max_seq")
+        w0 = self.obs.tracer.now_ns() if self.obs.enabled else 0
         t0 = time.perf_counter()
         self._free_row(bi)
         n_cached = 0
@@ -767,7 +772,7 @@ class KVSwapEngine:
         self.row_active[bi] = True
         logits = self.model.logits(self.params, x[:, -1])[0]
         self._admission_report(s=s, n_cached=n_cached, tr=tr,
-                               wall=time.perf_counter() - t0, row=bi)
+                               wall=time.perf_counter() - t0, wall_t0_ns=w0, row=bi)
         return logits
 
     def retire_row(self, bi: int) -> None:
@@ -876,6 +881,14 @@ class KVSwapEngine:
         modes, and the device-resident and host-gather paths, run the same
         numeric calls on the same inputs, so their tokens are bit-identical.
         """
+        obs = self.obs
+        on = obs.enabled
+        if on:
+            # the phase spans of this step: one lane a phase, the step's
+            # index in their args (shared by every span of the step)
+            tr = obs.tracer
+            d0 = tr.now_ns()
+            at = self._obs_at = {"step": len(self.step_log)}
         active = self.row_active.copy()
         n_active = int(active.sum())
         if n_active == 0:
@@ -889,6 +902,8 @@ class KVSwapEngine:
         self._h2d_step = 0
         self._step_active = active
         self.quality.begin_step()
+        if on:
+            t = tr.now_ns()
         b = self.batch
         if n_active == b:
             tok = torch.as_tensor(token_ids, device=self.device).reshape(b, 1)
@@ -899,6 +914,8 @@ class KVSwapEngine:
         pos = torch.as_tensor(self.row_seq.astype(np.int32), device=self.device)
         x = self.model.embed(self.params, tok)[:, 0]
         valid = torch.as_tensor(self.row_valid.astype(np.int32), device=self.device)
+        if on:
+            tr.phase("embed", "embed", t, at)
 
         t_compute: list[float] = []
         t_io: list[float] = []
@@ -908,12 +925,16 @@ class KVSwapEngine:
         else:
             x, io_wait = self._layers_sync(x, pos, valid, t_compute, t_io, flush_rows)
 
+        if on:
+            t = tr.now_ns()
         for j, bi, rows in flush_rows:
             start = int(self.row_valid[bi])
             self.k_lr[j][bi, start:start + rows.shape[1]] = rows[0]
         for bi in {bi for _, bi, _ in flush_rows}:
             self.row_valid[bi] += self.cfg.group_size
         self.row_seq[active] += 1
+        if on:
+            t = tr.phase("flush", "flush", t, at)
 
         stats = StepStats()
         stats.io_seconds = sum(t_io)
@@ -934,23 +955,28 @@ class KVSwapEngine:
         stats.resident_groups = qc.resident_groups
         stats.wall_seconds = time.perf_counter() - t0
         self.step_log.append(stats)
-        if self.obs.enabled:
-            self._obs_step(stats, t_compute, t_io)
-        return self.model.logits(self.params, x)
+        if on:
+            t = tr.phase("stats", "stats", t, at)
+        logits = self.model.logits(self.params, x)
+        if on:
+            tr.phase("logits", "logits", t, at)
+            self._obs_step(stats, t_compute, t_io, d0)
+        return logits
 
     def _obs_step(self, stats: StepStats, t_compute: Sequence[float],
-                  t_io: Sequence[float]) -> None:
-        """Decode-step spans on both clocks + per-step metrics; the modeled
+                  t_io: Sequence[float], d0: int) -> None:
+        """Decode-step spans on both clocks + per-step metrics: the wall
+        span from ``d0``, the step's first reading, to now; the modeled
         lanes replay :meth:`_pipeline_latency`, so layer *i+1*'s I/O bar
         hides under layer *i*'s compute bar exactly as the model says."""
         obs = self.obs
         tr = obs.tracer
         t0, _ = obs.advance_model(stats.pipelined_seconds)
         tr.add("decode_step", "engine-step", cat="decode",
-               wall_t0=max(0.0, tr.now_wall() - stats.wall_seconds),
-               wall_dur=stats.wall_seconds,
+               wall_t0_ns=d0, wall_t1_ns=tr.now_ns(),
                model_t0=t0, model_dur=stats.pipelined_seconds,
-               args={"active_rows": stats.active_rows,
+               args={"step": self._obs_at["step"],
+                     "active_rows": stats.active_rows,
                      "io_seconds": stats.io_seconds,
                      "compute_seconds": stats.compute_seconds,
                      "io_wait_seconds": stats.io_wait_seconds})
@@ -1026,18 +1052,24 @@ class KVSwapEngine:
         the device ``(ids, mask)`` pair comes to the host in one transfer.
         Inactive rows are masked out on the host (they fetch nothing)."""
         obs = self.obs
-        if obs.enabled:
-            p0 = obs.tracer.now_wall()
+        on = obs.enabled
+        if on:
+            tr, at = obs.tracer, self._obs_at
+            t = tr.now_ns()
         q_pred = self.model.predict_query(self.params, layer, pred_src, pos)
         ids, mask = self._predict(j, q_pred, valid)
-        pair = torch.cat([ids, mask.to(ids.dtype)], dim=1).cpu().numpy()
+        pair = torch.cat([ids, mask.to(ids.dtype)], dim=1)
+        if on:
+            t = tr.phase("predict", f"predict L{layer}", t, at)
+        pair = pair.cpu().numpy()
+        if on:
+            t = tr.phase("readback", f"readback L{layer}", t, at)
         m = ids.shape[1]
         ids, mask = pair[:, :m], pair[:, m:].astype(bool)
         masked = mask & self._step_active[:, None]
         self.quality.observe(layer, ids, masked, self.reuse[j])
-        if obs.enabled:
-            obs.tracer.add(f"predict L{layer}", f"layer{layer}", cat="predict",
-                           wall_t0=p0, wall_dur=obs.tracer.now_wall() - p0)
+        if on:
+            tr.phase("quality", f"quality L{layer}", t, at)
         return ids, masked
 
     def _state_layer(self, layer: int, x: torch.Tensor, pos: torch.Tensor,
@@ -1055,35 +1087,40 @@ class KVSwapEngine:
                   t_compute: list[float], flush_rows: list) -> torch.Tensor:
         if self.layer_hook is not None:
             self.layer_hook(layer, x, pos, table)
-        obs = self.obs
-        if obs.enabled:
-            a0 = obs.tracer.now_wall()
         if self.device_resident:
-            x = self._kv_layer_device(layer, j, x, pos, table, t_compute, flush_rows)
-        else:
-            x = self._kv_layer_host(layer, j, x, pos, table, t_compute, flush_rows)
-        if obs.enabled:
-            obs.tracer.add(f"attn L{layer}", f"layer{layer}", cat="attn",
-                           wall_t0=a0, wall_dur=obs.tracer.now_wall() - a0,
-                           args={"modeled_compute_s": t_compute[-1]})
-        return x
+            return self._kv_layer_device(layer, j, x, pos, table, t_compute, flush_rows)
+        return self._kv_layer_host(layer, j, x, pos, table, t_compute, flush_rows)
 
     def _kv_layer_host(self, layer: int, j: int, x: torch.Tensor, pos: torch.Tensor,
                        table, t_compute: list[float], flush_rows: list) -> torch.Tensor:
-        """Host-gather control path: host concat + full upload."""
+        """Host-gather control path: host concat + full upload (phases
+        ``upload``, ``block``, ``tail``: the new token's download and host
+        append, ``spill``: the completed groups' compression)."""
+        obs = self.obs
+        on = obs.enabled
+        if on:
+            tr, at = obs.tracer, self._obs_at
+            t = tr.now_ns()
         k_ctx, v_ctx, tok_mask, _ = self.managers[j].gather(table)
         self._h2d_step += k_ctx.nbytes + v_ctx.nbytes
-        x, k_new, v_new = self.model.decode_block(
-            self.params, layer, x, pos,
-            torch.from_numpy(k_ctx).to(self.device), torch.from_numpy(v_ctx).to(self.device),
-            torch.from_numpy(tok_mask).to(self.device))
+        ctx = (torch.from_numpy(k_ctx).to(self.device), torch.from_numpy(v_ctx).to(self.device),
+               torch.from_numpy(tok_mask).to(self.device))
+        if on:
+            t = tr.phase("upload", f"upload L{layer}", t, at)
+        x, k_new, v_new = self.model.decode_block(self.params, layer, x, pos, *ctx)
+        if on:
+            t = tr.phase("block", f"block L{layer}", t, at)
         completed = self.managers[j].append_token_rows(
             self._host(k_new), self._host(v_new), self._step_active)
+        if on:
+            t = tr.phase("tail", f"tail L{layer}", t, at)
         for bi, k_g, _ in completed:
             # compress the completed group's keys exactly as stored on disk
             k_gj = torch.from_numpy(k_g[None]).to(self.device, torch.float32)
             self._h2d_step += k_gj.numel() * k_gj.element_size()
             flush_rows.append((j, bi, compress_k(k_gj, self.adapter)))
+        if on:
+            tr.phase("spill", f"spill L{layer}", t, at)
         self._charge_layer_compute(k_ctx.shape[1] + 1, t_compute)
         return x
 
@@ -1097,14 +1134,23 @@ class KVSwapEngine:
         is downloaded once to spill to disk and compressed from the device
         copy into ``k_lr``.
         """
+        obs = self.obs
+        on = obs.enabled
+        if on:
+            tr, at = obs.tracer, self._obs_at
+            t = tr.now_ns()
         g = self.cfg.group_size
         mgr = self.managers[j]
         self._h2d_step += mgr.sync_device(table)
+        if on:
+            t = tr.phase("upload", f"upload L{layer}", t, at)
         mirror = self.reuse[j].device
         k_ctx, v_ctx, tok_mask = self.model.gather_context(
             mirror.k, mirror.v, torch.from_numpy(table.slots).to(self.device),
             self._tail_k[j], self._tail_v[j],
             torch.from_numpy(table.rolling_fill.astype(np.int32)).to(self.device))
+        if on:
+            t = tr.phase("gather", f"gather L{layer}", t, at)
         # groups staged because the reuse buffer is pinned full (slots == -2)
         # overwrite their gathered rows in one batched index_put_
         if table.staged:
@@ -1123,8 +1169,12 @@ class KVSwapEngine:
                 kv = torch.from_numpy(np.concatenate(pay)).to(self.device)   # [n·G, 2, Hk, d]
                 k_ctx.index_put_((idx[0], idx[1]), kv[:, 0])
                 v_ctx.index_put_((idx[0], idx[1]), kv[:, 1])
+            if on:
+                t = tr.phase("upload", f"staged L{layer}", t, at)
         x, k_new, v_new = self.model.decode_block(
             self.params, layer, x, pos, k_ctx, v_ctx, tok_mask)
+        if on:
+            t = tr.phase("block", f"block L{layer}", t, at)
         # each active row's fresh token goes to its own tail position; rows
         # not decoding keep their tail contents
         act = np.flatnonzero(self._step_active)
@@ -1132,6 +1182,8 @@ class KVSwapEngine:
         fidx = torch.from_numpy(mgr.rolling.fills[act]).to(self.device)
         self._tail_k[j][rows, fidx] = k_new[rows].float()
         self._tail_v[j][rows, fidx] = v_new[rows].float()
+        if on:
+            t = tr.phase("tail", f"tail L{layer}", t, at)
         for bi in mgr.rolling.advance_rows(self._step_active):
             # group complete: cast exactly as the host path stores it; one
             # download feeds the disk spill, k_lr compresses the device copy
@@ -1139,6 +1191,8 @@ class KVSwapEngine:
             kv_np = grp.cpu().numpy()
             mgr.spill_group_row(bi, kv_np[0], kv_np[1])
             flush_rows.append((j, bi, compress_k(grp[0][None].float(), self.adapter)))
+        if on:
+            tr.phase("spill", f"spill L{layer}", t, at)
         self._charge_layer_compute(k_ctx.shape[1] + 1, t_compute)
         return x
 
@@ -1166,17 +1220,20 @@ class KVSwapEngine:
             j = self._kv_index[layer]
             pred_src = x if (self.cfg.predict_from == "self" or layer == 0) else x_prev
             ids, mask = self._predict_for(layer, j, pred_src, pos, valid)
+            on = self.obs.enabled
+            if on:
+                f0 = self.obs.tracer.now_ns()
             w0 = time.perf_counter()
             with self.accountant.track() as tr:
                 table = self.managers[j].fetch(ids, mask)
-            dt = time.perf_counter() - w0
-            io_wait += dt
+            io_wait += time.perf_counter() - w0
             t_io.append(tr.read_seconds + tr.warm_seconds)
-            if self.obs.enabled:
+            if on:
                 self.obs.tracer.add(
-                    f"fetch L{layer}", f"layer{layer}", cat="fetch",
-                    wall_t0=self.obs.tracer.now_wall() - dt, wall_dur=dt,
-                    args={"modeled_io_s": tr.read_seconds + tr.warm_seconds,
+                    f"fetch L{layer}", "fetch", cat="fetch",
+                    wall_t0_ns=f0, wall_t1_ns=self.obs.tracer.now_ns(),
+                    args={"step": self._obs_at["step"],
+                          "modeled_io_s": tr.read_seconds + tr.warm_seconds,
                           "read_bytes": tr.read_bytes,
                           "warm_bytes": tr.warm_bytes})
             x_prev = x
@@ -1209,16 +1266,19 @@ class KVSwapEngine:
                     t_io.append(0.0)
                     continue
                 j = self._kv_index[layer]
+                on = self.obs.enabled
+                if on:
+                    f0 = self.obs.tracer.now_ns()
                 w0 = time.perf_counter()
                 res = buf.take(j)
-                dt = time.perf_counter() - w0
-                io_wait += dt
+                io_wait += time.perf_counter() - w0
                 t_io.append(res.io_seconds)
-                if self.obs.enabled:
+                if on:
                     self.obs.tracer.add(
-                        f"wait L{layer}", f"layer{layer}", cat="fetch",
-                        wall_t0=self.obs.tracer.now_wall() - dt, wall_dur=dt,
-                        args={"modeled_io_s": res.io_seconds})
+                        f"wait L{layer}", "wait", cat="wait",
+                        wall_t0_ns=f0, wall_t1_ns=self.obs.tracer.now_ns(),
+                        args={"step": self._obs_at["step"],
+                              "modeled_io_s": res.io_seconds})
                 x = self._kv_layer(layer, j, x, pos, res.table, t_compute, flush_rows)
         except BaseException:
             buf.drain()   # never leave staged futures behind on an error

@@ -198,6 +198,10 @@ class PrefetchWorker:
         try:
             if not req.future.set_running_or_notify_cancel():
                 return  # consumer cancelled while queued
+            obs = self._obs
+            on = obs is not None and obs.enabled   # read once: a handle may be switched
+            if on:
+                f0 = obs.tracer.now_ns()
             t0 = time.perf_counter()
             if self._accountant is not None:
                 with self._accountant.track() as tr:
@@ -211,13 +215,11 @@ class PrefetchWorker:
                 table = self._fetch_fn(req.layer, *req.args)
                 res = PrefetchResult(
                     table=table, wall_seconds=time.perf_counter() - t0)
-            obs = self._obs
-            if obs is not None and obs.enabled:
+            if on:
                 obs.tracer.add(
                     f"fetch L{req.layer}",
                     threading.current_thread().name, cat="prefetch",
-                    wall_t0=obs.tracer.now_wall() - res.wall_seconds,
-                    wall_dur=res.wall_seconds,
+                    wall_t0_ns=f0, wall_t1_ns=obs.tracer.now_ns(),
                     args={"layer": req.layer,
                           "modeled_io_s": res.io_seconds,
                           "read_bytes": res.io_bytes})

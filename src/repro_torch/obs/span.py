@@ -2,9 +2,12 @@
 
 Every span carries up to two placements:
 
-* **wall clock** — measured ``time.perf_counter()`` seconds relative to the
-  tracer's birth.  This is where the async pipeline's *actual* overlap
-  shows: prefetch-worker lanes busy while the engine lane computes.
+* **wall clock** — measured ``time.time_ns()`` readings, kept in absolute
+  nanoseconds: the clock ``torch.profiler`` stamps device events with, so a
+  span can be set against the device's busy and idle time.  The export
+  places them relative to the tracer's birth.  This is where the async
+  pipeline's *actual* overlap shows: prefetch-worker lanes busy while the
+  engine lane computes.  Each span records the thread that took it.
 * **modeled clock** — the DiskSpec/ComputeSpec clock the repo's latency
   claims are made on (the same clock :class:`~repro.serving.api.
   ServeSession` schedules with).  This is where the *paper's* overlap
@@ -17,10 +20,13 @@ metadata events.  A span placed on both clocks emits one ``"X"`` complete
 event per clock.  Open ``chrome://tracing`` or https://ui.perfetto.dev and
 load the exported JSON.
 
-Recording is append-to-list under a lock (worker threads record their own
-fetch spans), with timestamps resolved by the caller — the tracer never
-invents time, so modeled spans are exactly as deterministic as the modeled
-clock that produced them.
+Recording is append-to-list (worker threads record their own fetch spans;
+a phase span, the engine's hot path, is appended as a bare tuple and made a
+:class:`Span` when read), with timestamps resolved by the caller — the
+tracer never invents time, so modeled spans are exactly as deterministic as
+the modeled clock that produced them.  A wall span takes its start reading where its
+work starts (:meth:`SpanTracer.now_ns`) and is closed by
+:meth:`SpanTracer.phase`, which reads the end.
 """
 
 from __future__ import annotations
@@ -38,19 +44,20 @@ MODEL_PID = 2
 _PROCESS_NAMES = {WALL_PID: "wall clock", MODEL_PID: "modeled clock"}
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(slots=True)
 class Span:
     """One recorded operation.  ``None`` start means "not on that clock"."""
 
     name: str
     track: str                       # lane (Perfetto thread) within a clock
     cat: str = ""                    # category filter string
-    wall_t0: float | None = None     # seconds since tracer birth
-    wall_dur: float = 0.0
+    wall_t0_ns: int | None = None    # time.time_ns() at the start
+    wall_t1_ns: int = 0              # time.time_ns() at the end
     model_t0: float | None = None    # modeled seconds since engine start
     model_dur: float = 0.0
     args: dict | None = None
     instant: bool = False            # zero-duration marker ("i" event)
+    thread: int = 0                  # threading.get_ident() of the recorder
 
 
 class SpanTracer:
@@ -61,27 +68,40 @@ class SpanTracer:
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self._lock = threading.Lock()
-        self._spans: list[Span] = []
-        self._wall0 = time.perf_counter()
+        self._spans: list[Span | tuple] = []
+        self.birth_ns = time.time_ns()
 
     # -- recording --------------------------------------------------------
-    def now_wall(self) -> float:
-        """Seconds since tracer birth, the wall-span time base."""
-        return time.perf_counter() - self._wall0
+    @staticmethod
+    def now_ns() -> int:
+        """A wall reading: ``time.time_ns()``, the profiler's clock."""
+        return time.time_ns()
 
     def add(self, name: str, track: str, *, cat: str = "",
-            wall_t0: float | None = None, wall_dur: float = 0.0,
+            wall_t0_ns: int | None = None, wall_t1_ns: int | None = None,
             model_t0: float | None = None, model_dur: float = 0.0,
             args: dict | None = None, instant: bool = False) -> None:
-        """Record one pre-timed span (the engine computes both placements)."""
+        """Record one pre-timed span: its wall readings (``wall_t1_ns``
+        defaults to the start, an instant's) and its modeled placement."""
         if not self.enabled:
             return
-        sp = Span(name=name, track=track, cat=cat,
-                  wall_t0=wall_t0, wall_dur=wall_dur,
-                  model_t0=model_t0, model_dur=model_dur,
-                  args=args, instant=instant)
+        sp = Span(name, track, cat, wall_t0_ns,
+                  wall_t0_ns if wall_t1_ns is None else wall_t1_ns,
+                  model_t0, model_dur, args, instant, threading.get_ident())
         with self._lock:
             self._spans.append(sp)
+
+    def phase(self, cat: str, name: str, t0_ns: int, args: dict | None = None) -> int:
+        """Close the wall span ``name`` of phase ``cat`` (its lane) opened
+        by the ``t0_ns`` reading; returns the end reading, which a caller
+        may take as the next span's start.  Call sites guard on
+        ``obs.enabled``; a disabled tracer records nothing all the same."""
+        t1 = time.time_ns()
+        if self.enabled:
+            # one tuple and no lock: list.append is atomic, and a phase
+            # span costs the step a few microseconds, hundreds of times
+            self._spans.append((name, cat, t0_ns, t1, args, threading.get_ident()))
+        return t1
 
     def wall_span(self, name: str, track: str, *, cat: str = "",
                   args: dict | None = None) -> "_WallScope":
@@ -95,7 +115,10 @@ class SpanTracer:
 
     def spans(self) -> list[Span]:
         with self._lock:
-            return list(self._spans)
+            got = list(self._spans)
+        return [sp if type(sp) is Span else
+                Span(sp[0], sp[1], sp[1], sp[2], sp[3], None, 0.0, sp[4], False, sp[5])
+                for sp in got]
 
     def clear(self) -> None:
         with self._lock:
@@ -118,19 +141,23 @@ class SpanTracer:
 
         events: list[dict] = []
         for sp in spans:
-            for pid, t0, dur in ((WALL_PID, sp.wall_t0, sp.wall_dur),
-                                 (MODEL_PID, sp.model_t0, sp.model_dur)):
-                if t0 is None:
+            wall = (None if sp.wall_t0_ns is None else
+                    (max(sp.wall_t0_ns - self.birth_ns, 0) / 1e3,
+                     max(sp.wall_t1_ns - sp.wall_t0_ns, 0) / 1e3))
+            model = (None if sp.model_t0 is None else
+                     (sp.model_t0 * 1e6, max(sp.model_dur, 0.0) * 1e6))
+            for pid, at in ((WALL_PID, wall), (MODEL_PID, model)):
+                if at is None:
                     continue
                 ev = {"name": sp.name, "cat": sp.cat or "kvswap",
                       "pid": pid, "tid": tid_of(pid, sp.track),
-                      "ts": round(t0 * 1e6, 3)}
+                      "ts": round(at[0], 3)}
                 if sp.instant:
                     ev["ph"] = "i"
                     ev["s"] = "t"       # thread-scoped instant
                 else:
                     ev["ph"] = "X"
-                    ev["dur"] = round(max(dur, 0.0) * 1e6, 3)
+                    ev["dur"] = round(at[1], 3)
                 if sp.args:
                     ev["args"] = sp.args
                 events.append(ev)
@@ -165,13 +192,12 @@ class _WallScope:
         self.args = dict(args) if args else {}
 
     def __enter__(self):
-        self._t0 = self._tracer.now_wall()
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, *exc):
         self._tracer.add(self._name, self._track, cat=self._cat,
-                         wall_t0=self._t0,
-                         wall_dur=self._tracer.now_wall() - self._t0,
+                         wall_t0_ns=self._t0, wall_t1_ns=time.time_ns(),
                          args=self.args or None)
 
 

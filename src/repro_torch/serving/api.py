@@ -91,6 +91,13 @@ class Request:
     # also the historical knob external callers mutate.
     restored_tokens: int = 0
     error: str | None = None            # set iff state == FAILED
+    # the same lifecycle on the wall clock, ``time.time_ns()`` readings of
+    # the session's tracer; set only with an enabled obs handle:
+    #   submitted_wall <= admitted_wall <= first_token_wall <= finished_wall
+    submitted_wall: int | None = None
+    admitted_wall: int | None = None
+    first_token_wall: int | None = None
+    finished_wall: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,6 +259,8 @@ RequestRejected` (a ``ValueError``) and count on
                       sampling=sampling, sampler=sampler,
                       arrival=float(self.now if arrival is None else arrival),
                       slo_class=str(slo_class), tenant=str(tenant))
+        if self.obs.enabled:
+            req.submitted_wall = self.obs.tracer.now_ns()
         self._waiting.append(req)
         return req.rid
 
@@ -287,14 +296,19 @@ RequestRejected` (a ``ValueError``) and count on
         return [i for i, s in enumerate(self._slots) if s is not None]
 
     def _admit_due(self, events: list) -> None:
-        """Fill free slots with due requests, FIFO by (arrival, rid)."""
+        """Fill free slots with due requests, FIFO by (arrival, rid); each
+        admission, its prefill through the logits' readback, is one
+        ``serve.admit`` span."""
         self._waiting.sort(key=lambda r: (r.arrival, r.rid))
+        on = self.obs.enabled
         for i in range(self.n_slots):
             if self._slots[i] is not None:
                 continue
             due = next((r for r in self._waiting if r.arrival <= self.now), None)
             if due is None:
                 break
+            if on:
+                t = self.obs.tracer.now_ns()
             # dequeue only after the admission succeeds, so an admission
             # failure leaves the request visible instead of losing it
             try:
@@ -317,6 +331,10 @@ RequestRejected` (a ``ValueError``) and count on
             sampler = due.sampler or make_row_sampler(due.sampling)
             self._slots[i] = _Slot(due, sampler,
                                    logits.cpu().numpy()[None, :])
+            if on:
+                due.admitted_wall = self.obs.tracer.phase(
+                    "serve.admit", f"admit r{due.rid}", t,
+                    {"step": len(self.engine.step_log), "rid": due.rid, "slot": i})
             events.append({"type": "admit", "rid": due.rid, "slot": i,
                            "t": self.now, "cached_tokens": due.cached_tokens})
 
@@ -345,35 +363,56 @@ RequestRejected` (a ``ValueError``) and count on
         self.completed[req.rid] = req
         self._slots[i] = None
         if self.obs.enabled:
+            req.finished_wall = self.obs.tracer.now_ns()
             self._obs_finish(req, i)
         events.append({"type": "finish", "rid": req.rid, "slot": i,
                        "t": self.now, "tokens": len(slot.out),
                        "stopped_early": req.stopped_early})
 
     def _obs_finish(self, req: Request, i: int) -> None:
-        """Request lifecycle on the modeled clock: a ``queued`` span on the
+        """Request lifecycle on both clocks: a ``queued`` span on the
         shared ``requests`` lane (arrival → admission, which includes the
-        admission's own modeled prefill), a ``running`` span on the slot's
-        lane (admission → retirement) with a ``first_token`` instant, plus
-        the per-request counters/histograms
-        (:func:`repro_torch.serving.metrics.publish_request`)."""
+        admission's own modeled prefill; submission → admission on the
+        wall), a ``running`` span on the slot's lane (admission →
+        retirement) with a ``first_token`` instant, plus the per-request
+        counters/histograms
+        (:func:`repro_torch.serving.metrics.publish_request`).  The running
+        span's args carry TTFT and TPOT on both clocks.  A handle switched
+        on or off between steps leaves some wall readings unset: a span, or
+        a figure, missing either of its readings stays off the wall clock."""
         from repro_torch.serving import metrics
         rec = metrics.request_record(req)
         tr = self.obs.tracer
+        n = rec["tokens"]
+
+        def wall(t0, t1):
+            return (t0, t1) if t0 is not None and t1 is not None else (None, None)
+
+        queued, running, sampled = (wall(req.submitted_wall, req.admitted_wall),
+                                    wall(req.admitted_wall, req.finished_wall),
+                                    wall(req.first_token_wall, req.finished_wall))
+        ttft = wall(req.submitted_wall, req.first_token_wall)
         tr.add(f"r{req.rid} queued", "requests", cat="request",
+               wall_t0_ns=queued[0], wall_t1_ns=queued[1],
                model_t0=req.arrival,
                model_dur=req.admitted_at - req.arrival,
                args={"rid": req.rid, "slo_class": req.slo_class,
                      "prompt_tokens": rec["prompt_tokens"],
                      "cached_tokens": rec["cached_tokens"]})
         tr.add(f"r{req.rid}", f"slot{i}", cat="request",
+               wall_t0_ns=running[0], wall_t1_ns=running[1],
                model_t0=req.admitted_at,
                model_dur=req.finished_at - req.admitted_at,
-               args={"rid": req.rid, "tokens": rec["tokens"],
+               args={"rid": req.rid, "tokens": n,
                      "ttft_s": rec["ttft_seconds"],
                      "tpot_s": rec["tpot_seconds"],
+                     "ttft_wall_s": None if ttft[0] is None else (ttft[1] - ttft[0]) / 1e9,
+                     "tpot_wall_s": (None if sampled[0] is None else
+                                     (sampled[1] - sampled[0]) / 1e9 / (n - 1) if n > 1
+                                     else 0.0),
                      "stopped_early": rec["stopped_early"]})
         tr.add("first_token", f"slot{i}", cat="request",
+               wall_t0_ns=req.first_token_wall,
                model_t0=req.first_token_at, instant=True,
                args={"rid": req.rid})
         metrics.publish_request(self.obs.registry, rec)
@@ -512,8 +551,22 @@ RequestRejected` (a ``ValueError``) and count on
         ``max_new`` budget retire *before* the decode step, so a finished
         request never burns another disk read (the static batcher's
         decode-to-batch-max waste).  Freed slots are refilled in the same
-        iteration when due requests are waiting.
+        iteration when due requests are waiting.  With an enabled obs
+        handle the iteration is one ``serve.step`` wall span, its phases
+        (``serve.admit``, ``serve.sample``, the engine's ``decode``,
+        ``serve.logits_wait``) nested inside.
         """
+        obs = self.obs
+        if not obs.enabled:
+            return self._step()
+        t = obs.tracer.now_ns()
+        at = {"step": len(self.engine.step_log)}
+        try:
+            return self._step()
+        finally:
+            obs.tracer.phase("serve.step", "step", t, at)
+
+    def _step(self) -> list[dict]:
         events: list[dict] = []
         if not self._active() and self._waiting:
             # idle engine: jump the clock to the next arrival
@@ -525,6 +578,10 @@ RequestRejected` (a ``ValueError``) and count on
         self._admit_due(events)
         if not self._active():
             return events
+        on = self.obs.enabled
+        if on:
+            tr = self.obs.tracer
+            t = tr.now_ns()
         toks = np.zeros(self.n_slots, dtype=np.int64)
         for i in self._active():
             slot = self._slots[i]
@@ -532,6 +589,8 @@ RequestRejected` (a ``ValueError``) and count on
             slot.out.append(tok)
             if len(slot.out) == 1:
                 slot.req.first_token_at = self.now
+                if on:
+                    slot.req.first_token_wall = tr.now_ns()
             events.append({"type": "token", "rid": slot.req.rid, "slot": i,
                            "token": tok})
             if tok in slot.stop_set:
@@ -546,9 +605,17 @@ RequestRejected` (a ``ValueError``) and count on
         # sampled its first token (its logits come from the admission
         # prefill, which the sampling loop above has already passed)
         active = self._active()
+        if on:
+            at = {"step": len(self.engine.step_log)}
+            tr.phase("serve.sample", "sample", t, at)
         if active:
             try:
-                logits = self.engine.decode_step(toks).cpu().numpy()
+                logits = self.engine.decode_step(toks)
+                if on:
+                    t = tr.now_ns()
+                logits = logits.cpu().numpy()
+                if on:
+                    tr.phase("serve.logits_wait", "logits_wait", t, at)
             except StorageFault as exc:
                 # unrecoverable mid-step fault: fail the culprit request,
                 # replay the rest (docs/robustness.md rung 2) — the session

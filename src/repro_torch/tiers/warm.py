@@ -285,7 +285,7 @@ class WarmTier(KVTier):
                 # hits are sparse enough to mark individually; admissions are
                 # every reuse eviction and stay counter-only
                 obs.tracer.add("warm_hit", "warm-tier", cat="warm",
-                               wall_t0=obs.tracer.now_wall(), instant=True,
+                               wall_t0_ns=obs.tracer.now_ns(), instant=True,
                                args={"layer": layer, "row": row, "group": gid})
             out = (entry.q.astype(np.float32)
                    * np.float32(entry.scale)).astype(dtype)
