@@ -57,6 +57,7 @@ from repro_torch.core.offload import DISKS, DiskSpec, IOAccountant, KVDiskStore
 from repro_torch.core.predictor import PredictorConfig
 from repro_torch.core.reuse_buffer import ReuseBuffer
 from repro_torch.core.rolling_buffer import RollingBuffer
+from repro_torch.core.upload import SlabRing
 from repro_torch.device import resolve
 from repro_torch.faults.errors import CorruptBlockError, StorageFault
 from repro_torch.faults.retry import RetryPolicy
@@ -364,10 +365,21 @@ class KVSwapEngine:
             self.store.warm = self.warm
         self._retry = RetryPolicy(max_attempts=cfg.io_max_attempts,
                                   backoff_base_s=cfg.io_backoff_s)
+        self.device_resident = bool(cfg.device_resident
+                                    and hasattr(model, "gather_context"))
+        # the device-resident path's upload slabs, one a live table: the
+        # double buffer's two and one whose copy may be pending (async), or
+        # one (sync); each holds the most one layer's fetch can serve
+        self.slabs = None
+        if self.device_resident:
+            self.slabs = SlabRing(
+                3 if cfg.async_io else 1, batch=batch, n_select=cfg.n_select,
+                group_shape=(g, 2, model.n_kv_heads, model.head_dim),
+                dtype=cfg.np_dtype, device=self.device, obs=self.obs)
         self.managers = [
             KVCacheManager(store=self.store, reuse=self.reuse[j], rolling=self.rolling[j],
                            layer=j, scheduler=self.scheduler, warm=self.warm,
-                           obs=self.obs, retry=self._retry)
+                           obs=self.obs, retry=self._retry, slabs=self.slabs)
             for j in range(n_kv_layers)
         ]
         self.prefetcher: PrefetchWorker | None = None
@@ -403,8 +415,6 @@ class KVSwapEngine:
         self.prefill_report: dict = {}
         self.admit_log: list[dict] = []   # one report per admit_row/prefill
         self._prompt_np: np.ndarray | None = None
-        self.device_resident = bool(cfg.device_resident
-                                    and hasattr(model, "gather_context"))
         # device rolling tail per layer: [B, G, H_kv, d] fp32, written in
         # place by decode; per-row validity comes from RollingBuffer.fills
         self._tail_k: list[torch.Tensor | None] = [None] * n_kv_layers
@@ -920,10 +930,15 @@ class KVSwapEngine:
         t_compute: list[float] = []
         t_io: list[float] = []
         flush_rows: list[tuple[int, int, torch.Tensor]] = []   # (layer, row, k_lr rows)
-        if self.prefetcher is not None:
-            x, io_wait = self._layers_async(x, pos, valid, t_compute, t_io, flush_rows)
-        else:
-            x, io_wait = self._layers_sync(x, pos, valid, t_compute, t_io, flush_rows)
+        try:
+            if self.prefetcher is not None:
+                x, io_wait = self._layers_async(x, pos, valid, t_compute, t_io, flush_rows)
+            else:
+                x, io_wait = self._layers_sync(x, pos, valid, t_compute, t_io, flush_rows)
+        except BaseException:
+            if self.slabs is not None:
+                self.slabs.reclaim()   # the failed step's undelivered tables
+            raise
 
         if on:
             t = tr.now_ns()
@@ -1128,49 +1143,36 @@ class KVSwapEngine:
                          table, t_compute: list[float], flush_rows: list) -> torch.Tensor:
         """Device-resident hot path: only fetch misses cross host→device.
 
-        The reuse mirror takes the fetch's ``new_groups`` in place, the
-        context is gathered on the device by slot, and fresh ``k_new/v_new``
-        are written in place into the device rolling tail; a completed group
-        is downloaded once to spill to disk and compressed from the device
-        copy into ``k_lr``.
+        The fetch's upload slab reaches the device in one copy that also
+        carries the table's addressing; the reuse mirror takes its groups in
+        place, the context is gathered on the device by slot and the staged
+        groups overwrite their rows; fresh ``k_new/v_new`` are written in
+        place into the device rolling tail; a completed group is downloaded
+        once to spill to disk and compressed from the device copy into
+        ``k_lr``.
         """
         obs = self.obs
         on = obs.enabled
         if on:
             tr, at = obs.tracer, self._obs_at
             t = tr.now_ns()
-        g = self.cfg.group_size
         mgr = self.managers[j]
-        self._h2d_step += mgr.sync_device(table)
+        up, h2d = mgr.sync_device(table)
+        self._h2d_step += h2d
         if on:
             t = tr.phase("upload", f"upload L{layer}", t, at)
         mirror = self.reuse[j].device
         k_ctx, v_ctx, tok_mask = self.model.gather_context(
-            mirror.k, mirror.v, torch.from_numpy(table.slots).to(self.device),
-            self._tail_k[j], self._tail_v[j],
-            torch.from_numpy(table.rolling_fill.astype(np.int32)).to(self.device))
+            mirror.k, mirror.v, up.slots, self._tail_k[j], self._tail_v[j], up.fill)
         if on:
             t = tr.phase("gather", f"gather L{layer}", t, at)
         # groups staged because the reuse buffer is pinned full (slots == -2)
-        # overwrite their gathered rows in one batched index_put_
+        # overwrite their gathered rows in one index_put_ each of K and V
         if table.staged:
-            rows_b: list[int] = []
-            rows_t: list[int] = []
-            pay: list[np.ndarray] = []
-            for (bi, gid), kv in table.staged.items():
-                self._h2d_step += kv.nbytes
-                for mi in np.nonzero((table.group_ids[bi] == gid)
-                                     & (table.slots[bi] == -2))[0]:
-                    rows_b.extend([bi] * g)
-                    rows_t.extend(range(int(mi) * g, (int(mi) + 1) * g))
-                    pay.append(kv)
-            if rows_b:
-                idx = torch.tensor([rows_b, rows_t], dtype=torch.long).to(self.device)
-                kv = torch.from_numpy(np.concatenate(pay)).to(self.device)   # [n·G, 2, Hk, d]
-                k_ctx.index_put_((idx[0], idx[1]), kv[:, 0])
-                v_ctx.index_put_((idx[0], idx[1]), kv[:, 1])
+            up.put_staged(k_ctx, v_ctx)
             if on:
                 t = tr.phase("upload", f"staged L{layer}", t, at)
+        del up   # frees the copy's device buffer before the block allocates
         x, k_new, v_new = self.model.decode_block(
             self.params, layer, x, pos, k_ctx, v_ctx, tok_mask)
         if on:

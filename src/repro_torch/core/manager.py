@@ -21,6 +21,7 @@ import numpy as np
 from repro_torch.core.offload import KVDiskStore
 from repro_torch.core.reuse_buffer import ReuseBuffer
 from repro_torch.core.rolling_buffer import RollingBuffer
+from repro_torch.core.upload import DeviceUpload, SlabRing, SlabUpload, staged_tokens
 from repro_torch.faults.errors import FetchFailed
 from repro_torch.faults.retry import RetryPolicy
 from repro_torch.io.scheduler import ReadRun, ReadScheduler
@@ -46,9 +47,9 @@ class MappingTable:
     rolling_fill: np.ndarray
     # transient staging for groups that couldn't enter the reuse buffer
     staged: dict = dataclasses.field(default_factory=dict)  # (bi, gid) -> [G,2,Hkv,d]
-    # groups this fetch loaded from disk into reuse slots — the *delta* the
-    # device-resident path scatter-uploads (reuse hits ship zero bytes)
-    new_groups: list = dataclasses.field(default_factory=list)  # (bi, slot, kv)
+    # device-resident path: the slab holding this fetch's served groups (the
+    # *delta*: reuse hits ship zero bytes) and the indices that place them
+    upload: SlabUpload | None = None
 
 
 class KVCacheManager:
@@ -63,7 +64,8 @@ class KVCacheManager:
 
     def __init__(self, *, store: KVDiskStore, reuse: ReuseBuffer, rolling: RollingBuffer,
                  layer: int, scheduler: ReadScheduler | None = None, warm=None,
-                 obs=None, retry: RetryPolicy | None = None):
+                 obs=None, retry: RetryPolicy | None = None,
+                 slabs: SlabRing | None = None):
         self.store = store
         self.reuse = reuse
         self.rolling = rolling
@@ -86,6 +88,8 @@ class KVCacheManager:
         # The disk tier is always last and always authoritative.
         self.chain = ([warm] if warm is not None else []) + [self.disk]
         self._obs = obs
+        # the device-resident engine's upload slabs (None: host gather)
+        self.slabs = slabs
 
     # lifetime fault counters live on the disk tier (it owns the retry
     # ladder); these views keep the serving layer's accounting stable
@@ -127,16 +131,19 @@ class KVCacheManager:
         before touching the store (§3.4.4) and is authoritative, so the
         chain never ends with unresolved groups.  Every group a tier
         serves is promoted into the reuse buffer exactly like a disk load
-        — including the staged-overflow and device-mirror delta
-        (new_groups) paths.
+        — including the staged-overflow path.  With upload slabs attached
+        (the device-resident engine), each served group is also copied once
+        into a slab with the indices that place it on the device
+        (``table.upload``, delivered by :meth:`sync_device`).
 
         ``group_ids, group_mask``: ``[B, M]``.
         """
         b, m = group_ids.shape
+        group_mask = np.asarray(group_mask, bool)
         slots = np.full((b, m), -1, dtype=np.int64)
         ids_out = np.where(group_mask, group_ids, -1)
         staged: dict = {}
-        new_groups: list = []
+        mirror: list = []   # (bi, slot, kv) the reuse buffer took
         for bi in range(b):
             want = [int(g) for g, ok in zip(group_ids[bi], group_mask[bi]) if ok]
             # de-dup, preserving order (top-k can repeat id 0 on masked rows)
@@ -154,7 +161,7 @@ class KVCacheManager:
                     if slot is None:
                         staged[(bi, gid)] = kv
                     else:
-                        new_groups.append((bi, slot, kv))
+                        mirror.append((bi, slot, kv))
             if misses:
                 raise FetchFailed(
                     f"layer {self.layer} row {bi} groups {misses} not "
@@ -162,16 +169,20 @@ class KVCacheManager:
                     f"({[t.name for t in self.chain]})",
                     layer=self.layer, row=bi, start=int(misses[0]),
                     count=len(misses))
-            for mi in range(m):
-                if group_mask[bi, mi]:
-                    gid = int(group_ids[bi, mi])
-                    slot = self.reuse.slot_of(bi, gid)
-                    slots[bi, mi] = -2 if slot is None else slot
-        return MappingTable(
-            group_ids=ids_out, slots=slots, group_mask=np.asarray(group_mask, bool),
+            # residency is settled: each selected group's slot, -2 if staged
+            held = group_ids[bi][:, None] == self.reuse.slot_table[bi][None, :]
+            slot = np.where(held.any(axis=1), held.argmax(axis=1), -2)
+            slots[bi] = np.where(group_mask[bi], slot, -1)
+        table = MappingTable(
+            group_ids=ids_out, slots=slots, group_mask=group_mask,
             rolling_fill=self.rolling.fills.copy(), staged=staged,
-            new_groups=new_groups,
         )
+        if self.slabs is not None:
+            rows, pos, tok_rows, toks = staged_tokens(slots, self.reuse.group_size)
+            table.upload = self.slabs.fill(
+                mirror, [staged[(r, g)] for r, g in zip(rows.tolist(), ids_out[rows, pos].tolist())],
+                slots, table.rolling_fill, tok_rows, toks)
+        return table
 
     def gather(self, table: MappingTable) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Materialize the logical KV view.
@@ -218,19 +229,24 @@ class KVCacheManager:
         pos[:, m * g :] = base + np.arange(g)[None, :]
         return k, v, mask, pos
 
-    def sync_device(self, table: MappingTable) -> int:
-        """Scatter a fetch's newly loaded groups into the device mirror.
+    def sync_device(self, table: MappingTable) -> tuple[DeviceUpload, int]:
+        """Deliver a device-resident fetch's slab to the device: one copy,
+        the reuse mirror written in place by ``index_put_``.
 
-        The delta-upload contract of the device-resident decode path: a step
-        whose working set fully hits the reuse buffer has an empty
-        ``table.new_groups`` and uploads **zero** group bytes.  Must run on
-        the thread that owns the JAX device (the engine's main thread) — the
-        async fetch itself stays host-only.  Returns bytes uploaded.
+        The delta-upload contract: a step whose working set fully hits the
+        reuse buffer moves **zero** group bytes (the copy carries only the
+        table's addressing).  Runs on the engine's main thread, which owns
+        the device work; the fetch itself stays host-only.  Returns the
+        delivered views (slot addressing, fills, staged groups) and the
+        bytes charged to the step's host-to-device count: the mirror's
+        groups and each staged group once.
         """
         mirror = self.reuse.device
-        if mirror is None:
-            raise RuntimeError("no device mirror attached (host-gather mode?)")
-        return mirror.scatter(table.new_groups)
+        if mirror is None or table.upload is None:
+            raise RuntimeError("no device mirror or upload slab (host-gather mode?)")
+        b, m = table.slots.shape
+        up = self.slabs.deliver(table.upload, mirror, b, m)
+        return up, (table.upload.n_mirror + len(table.staged)) * self.slabs.group_nbytes
 
     def spill_group_row(self, batch_idx: int, k_group: np.ndarray,
                         v_group: np.ndarray) -> None:

@@ -311,6 +311,18 @@ class IOAccountant:
         }
 
 
+class KVRun(tuple):
+    """One read run as ``(k, v)``, each ``[count, G, H_kv, d]``: the two
+    halves of ``block``, the ``[count, G, 2, H_kv, d]`` extent as the store
+    holds it (dequantised for an int8 store), so a reader that wants whole
+    groups takes ``block[i]`` without restacking the halves."""
+
+    def __new__(cls, block: np.ndarray):
+        run = super().__new__(cls, (block[:, :, 0], block[:, :, 1]))
+        run.block = block
+        return run
+
+
 class KVDiskStore:
     """File-backed full KV cache with group-contiguous layout.
 
@@ -509,15 +521,16 @@ class KVDiskStore:
         """Execute one coalesced run: a single sequential read of ``count``
         groups starting at ``start`` (a :class:`repro.io.scheduler.ReadRun`).
 
-        Returns ``(k, v)`` each ``[count, G, H_kv, d]``.  Charged to the
-        accountant as **one** request of ``count * group_nbytes`` bytes —
-        gap groups a gap-coalescing scheduler reads through are real bytes
-        moved, so they are billed too.
+        Returns ``(k, v)`` each ``[count, G, H_kv, d]``, a :class:`KVRun`
+        over the extent read.  Charged to the accountant as **one** request
+        of ``count * group_nbytes`` bytes — gap groups a gap-coalescing
+        scheduler reads through are real bytes moved, so they are billed
+        too.
         """
-        k, v = self.peek_run(layer, batch_idx, start, count)
+        run = self.peek_run(layer, batch_idx, start, count)
         if self.accountant is not None:
             self.accountant.charge_read(count * self.group_nbytes, 1)
-        return k, v
+        return run
 
     def peek_run(self, layer: int, batch_idx: int, start: int,
                  count: int) -> tuple[np.ndarray, np.ndarray]:
@@ -530,7 +543,7 @@ class KVDiskStore:
         blk = np.asarray(self._mm[layer, batch_idx, start:start + count])
         if self.quant_bits == 8:
             blk = self._dequant(blk, self._scales[layer, batch_idx, start:start + count])
-        return blk[:, :, 0], blk[:, :, 1]
+        return KVRun(blk)
 
     def read_groups(self, layer: int, batch_idx: int, group_ids: Sequence[int],
                     scheduler: ReadScheduler | None = None) -> tuple[np.ndarray, np.ndarray]:

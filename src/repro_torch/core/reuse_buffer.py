@@ -37,10 +37,11 @@ class DeviceReuseMirror:
     by the *same* slot indices the host slot table assigns, so a
     :class:`~repro_torch.core.manager.MappingTable`'s ``slots`` array is
     directly a gather index into device memory.  Only newly fetched groups
-    cross the host→device boundary: one upload per fetch, written in place
-    by one ``index_put_`` into each of ``k`` and ``v``; reuse hits move zero
-    bytes.  Must be called from the thread that owns the device work (the
-    engine's main thread), never from a prefetch worker.
+    cross the host→device boundary, inside the fetch's upload slab
+    (:mod:`repro_torch.core.upload`), written in place by one ``index_put_``
+    into each of ``k`` and ``v``; reuse hits move zero bytes.  Must be
+    called from the thread that owns the device work (the engine's main
+    thread), never from a prefetch worker.
 
     ``uploaded_bytes`` counts the payload bytes shipped host→device.  The
     reference padded each scatter to a power-of-two row count (and
@@ -74,19 +75,15 @@ class DeviceReuseMirror:
     def nbytes(self) -> int:
         return self.k.numel() * self.k.element_size() * 2
 
-    def scatter(self, entries: list) -> int:
-        """Write ``entries = [(batch_idx, slot, kv [G, 2, H_kv, d]), ...]``
-        into the mirror.  Returns the payload bytes uploaded."""
-        if not entries:
-            return 0
-        idx = torch.tensor([(bi, slot) for bi, slot, _ in entries],
-                           dtype=torch.long).T.to(self.device)
-        kv = torch.from_numpy(np.stack([e[2] for e in entries])).to(self.device)
-        self.k.index_put_((idx[0], idx[1]), kv[:, :, 0])
-        self.v.index_put_((idx[0], idx[1]), kv[:, :, 1])
-        nbytes = len(entries) * int(entries[0][2].nbytes)
+    def scatter(self, rows: torch.Tensor, slots: torch.Tensor, kv: torch.Tensor) -> int:
+        """Write ``kv [n, G, 2, H_kv, d]`` (on the device) into slots
+        ``(rows, slots)``, ``n`` distinct pairs.  Returns the payload bytes
+        uploaded."""
+        self.k.index_put_((rows, slots), kv[:, :, 0])
+        self.v.index_put_((rows, slots), kv[:, :, 1])
+        nbytes = kv.numel() * kv.element_size()
         self.uploaded_bytes += nbytes
-        self.uploaded_groups += len(entries)
+        self.uploaded_groups += kv.shape[0]
         self.scatter_calls += 1
         return nbytes
 
@@ -142,14 +139,6 @@ class ReuseBuffer:
         """Return the slot contents ``[G, 2, H_kv, d]`` for a resident group."""
         slot = self._index[batch_idx][group_id]
         return self.slots[batch_idx, slot]
-
-    def slot_of(self, batch_idx: int, group_id: int) -> int | None:
-        """Slot index holding ``group_id``, or ``None`` if not resident.
-
-        Does not count as a lookup for hit/miss stats — this is the address
-        query the mapping-table rebuild uses after residency is settled.
-        """
-        return self._index[batch_idx].get(group_id)
 
     def insert(self, batch_idx: int, group_id: int, kv_group: np.ndarray,
                protected: set | None = None) -> int | None:

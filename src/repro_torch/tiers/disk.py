@@ -123,9 +123,8 @@ class DiskTier(KVTier):
               dtype) -> np.ndarray | None:
         if int(gid) >= int(self.store.n_groups[layer, row]):
             return None
-        k_r, v_r = self.read_run_with_retry(
-            row, ReadRun(int(gid), 1, (int(gid),)), layer=layer)
-        return np.stack([k_r[0], v_r[0]], axis=1)   # [G, 2, Hkv, d]
+        return self.read_run_with_retry(
+            row, ReadRun(int(gid), 1, (int(gid),)), layer=layer).block[0]   # [G, 2, Hkv, d]
 
     def serve_run(self, layer: int, row: int, gids: Sequence[int],
                   dtype) -> tuple[list[tuple[int, np.ndarray]], list[int]]:
@@ -142,11 +141,9 @@ class DiskTier(KVTier):
             self._m_plan_wasted.inc(st["groups_wasted"])
         served: list[tuple[int, np.ndarray]] = []
         for run in plan:
-            k_r, v_r = self.read_run_with_retry(row, run, layer=layer)
-            for gid in run.ids:
-                off = gid - run.start
-                served.append(
-                    (int(gid), np.stack([k_r[off], v_r[off]], axis=1)))
+            # each group as the extent read holds it, [G, 2, Hkv, d]
+            blk = self.read_run_with_retry(row, run, layer=layer).block
+            served.extend((int(gid), blk[gid - run.start]) for gid in run.ids)
         return served, []
 
     def admit(self, layer: int, row: int, gid: int, kv: np.ndarray, *,
