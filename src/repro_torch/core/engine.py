@@ -29,6 +29,13 @@ Per-slot request lifecycle (continuous batching) follows the reference:
 is handed in), :meth:`KVSwapEngine.retire_row` frees it, and inactive rows
 select no groups, read nothing and charge no modeled time.
 
+A model whose KV layers cache latent records (MLA, ``model.kv_planes ==
+1``) keeps one record a token in the store, the reuse buffers and their
+mirrors, the slabs and the tails; each layer's gathered records are
+decompressed on the device (``model.expand_context``) before its block.
+The prefix cache, the warm tier and ``publish`` take K/V pairs and refuse
+such a model.
+
 Orthogonally, as in the reference: ``warm_budget_bytes > 0`` puts a
 host-RAM warm tier (:mod:`repro_torch.tiers`) between the reuse buffers
 and the disk, ``faults=`` wraps the disk store in the fault-injecting
@@ -290,6 +297,14 @@ class KVSwapEngine:
         self.adapter = adapter
         self._per_head_a = adapter.per_head  # [H_k, d, r]
         self._dtype = torch.from_numpy(np.zeros(0, cfg.np_dtype)).dtype
+        # 2: K and V a token; 1: one latent record (MLA), V derived from it
+        self.kv_planes = getattr(model, "kv_planes", 2)
+        limit = getattr(model, "max_positions", None)
+        if limit is not None and cfg.max_seq > limit:
+            raise ValueError(f"max_seq {cfg.max_seq} exceeds the {limit} positions the "
+                             "model defines")
+        if self.kv_planes == 1 and cfg.warm_budget_bytes > 0:
+            raise ValueError("the warm tier keeps K/V pairs; latent records have none")
 
         g = cfg.group_size
         self.max_groups = (cfg.max_seq + g - 1) // g
@@ -322,6 +337,9 @@ class KVSwapEngine:
                 "modeled layer-pipelined decode-step latency")
             self._m_hist_wall = reg.histogram(
                 "kvswap_step_wall_seconds", "measured decode-step wall time")
+            self._m_expanded = reg.counter(
+                "kvswap_latent_records_expanded_total",
+                "latent records decompressed into heads on the device (MLA decode)")
         # the modeled clock prices the paper's device (Jetson Orin AGX by
         # default), as the reference does, so StepStats compare one to one
         self.compute_spec = hardware.COMPUTES.get(cfg.compute, hardware.TPU_V5E)
@@ -329,7 +347,7 @@ class KVSwapEngine:
             n_layers=n_kv_layers, batch=batch, max_groups=self.max_groups,
             group_size=g, n_kv_heads=model.n_kv_heads, head_dim=model.head_dim,
             dtype=cfg.np_dtype, accountant=self.accountant,
-            quant_bits=8 if cfg.kv_bits == 8 else 0,
+            quant_bits=8 if cfg.kv_bits == 8 else 0, planes=self.kv_planes,
         )
         # fault injection: with a FaultPlan attached the disk tier is wrapped
         # in the FaultyDisk shim; faults=None keeps the bare store, and the
@@ -342,12 +360,12 @@ class KVSwapEngine:
         self.reuse = [
             ReuseBuffer(batch=batch, capacity=cfg.reuse_capacity, group_size=g,
                         n_kv_heads=model.n_kv_heads, head_dim=model.head_dim,
-                        dtype=cfg.np_dtype)
+                        dtype=cfg.np_dtype, planes=self.kv_planes)
             for _ in range(n_kv_layers)
         ]
         self.rolling = [
             RollingBuffer(batch=batch, group_size=g, n_kv_heads=model.n_kv_heads,
-                          head_dim=model.head_dim, dtype=cfg.np_dtype)
+                          head_dim=model.head_dim, dtype=cfg.np_dtype, planes=self.kv_planes)
             for _ in range(n_kv_layers)
         ]
         self.scheduler = ReadScheduler(max_gap=cfg.coalesce_gap)
@@ -374,7 +392,7 @@ class KVSwapEngine:
         if self.device_resident:
             self.slabs = SlabRing(
                 3 if cfg.async_io else 1, batch=batch, n_select=cfg.n_select,
-                group_shape=(g, 2, model.n_kv_heads, model.head_dim),
+                group_shape=(g, self.kv_planes, model.n_kv_heads, model.head_dim),
                 dtype=cfg.np_dtype, device=self.device, obs=self.obs)
         self.managers = [
             KVCacheManager(store=self.store, reuse=self.reuse[j], rolling=self.rolling[j],
@@ -407,7 +425,7 @@ class KVSwapEngine:
             group_size=g, n_select=cfg.n_select,
             n_heads=model.n_heads, n_kv_heads=model.n_kv_heads,
         )
-        self.dims = hardware.ModelDims(
+        self.dims = (hardware.LatentDims if self.kv_planes == 1 else hardware.ModelDims)(
             d_model=model.d_model, n_heads=model.n_heads, n_kv_heads=model.n_kv_heads,
             head_dim=model.head_dim, d_ff=getattr(model, "d_ff", 4 * model.d_model),
         )
@@ -559,8 +577,9 @@ class KVSwapEngine:
             # seed the device rolling tail's row from the host tail
             self._tail_k[j][row] = torch.from_numpy(self.rolling[j].k[row]).to(
                 self.device, torch.float32)
-            self._tail_v[j][row] = torch.from_numpy(self.rolling[j].v[row]).to(
-                self.device, torch.float32)
+            if self.kv_planes == 2:
+                self._tail_v[j][row] = torch.from_numpy(self.rolling[j].v[row]).to(
+                    self.device, torch.float32)
 
     def _prefill_layers(self, tokens_np: np.ndarray, s: int, n_cached: int = 0,
                         k_pre: np.ndarray | None = None, v_pre: np.ndarray | None = None,
@@ -589,12 +608,16 @@ class KVSwapEngine:
                 v_np = np.concatenate([v_pre[j], self._host(v_suf)], axis=1)
             else:
                 x, k_dev, v = self.model.prefill_block(self.params, layer, x, positions)
-                k_np, v_np = self._host(k_dev), self._host(v)
+                k_np = self._host(k_dev)
+                v_np = k_np if self.kv_planes == 1 else self._host(v)
             self._spill_prefill_layer(j, k_np, v_np, k_dev, s, row)
         return x
 
     def _open_cache(self, cache) -> None:
         """Bind ``cache`` to this engine's geometry, accountant and obs."""
+        if self.kv_planes == 1:
+            raise ValueError("the prefix cache keeps K/V pairs; a model of latent "
+                             "records (MLA) has none to restore or publish")
         cache.open(n_layers=len(self.kv_layers), group_size=self.cfg.group_size,
                    n_kv_heads=self.model.n_kv_heads, head_dim=self.model.head_dim,
                    dtype=self.cfg.np_dtype)
@@ -1034,8 +1057,8 @@ class KVSwapEngine:
             # torch.tensor copies: the tail must never alias the host buffer
             self._tail_k[j] = torch.tensor(self.rolling[j].k, dtype=torch.float32,
                                            device=self.device)
-            self._tail_v[j] = torch.tensor(self.rolling[j].v, dtype=torch.float32,
-                                           device=self.device)
+            self._tail_v[j] = self._tail_k[j] if self.kv_planes == 1 else torch.tensor(
+                self.rolling[j].v, dtype=torch.float32, device=self.device)
         self._dev_ready = True
 
     def layer_context(self, layer: int, bi: int) -> tuple[np.ndarray, np.ndarray, int]:
@@ -1117,16 +1140,23 @@ class KVSwapEngine:
             tr, at = obs.tracer, self._obs_at
             t = tr.now_ns()
         k_ctx, v_ctx, tok_mask, _ = self.managers[j].gather(table)
-        self._h2d_step += k_ctx.nbytes + v_ctx.nbytes
-        ctx = (torch.from_numpy(k_ctx).to(self.device), torch.from_numpy(v_ctx).to(self.device),
-               torch.from_numpy(tok_mask).to(self.device))
+        k_dev = torch.from_numpy(k_ctx).to(self.device)
+        v_dev = k_dev if self.kv_planes == 1 else torch.from_numpy(v_ctx).to(self.device)
+        self._h2d_step += k_ctx.nbytes * self.kv_planes
+        mask = torch.from_numpy(tok_mask).to(self.device)
         if on:
             t = tr.phase("upload", f"upload L{layer}", t, at)
-        x, k_new, v_new = self.model.decode_block(self.params, layer, x, pos, *ctx)
+        if self.kv_planes == 1:
+            k_dev, v_dev = self._expand(layer, k_dev)
+            if on:
+                t = tr.phase("gather", f"expand L{layer}", t, at)
+        x, k_new, v_new = self.model.decode_block(self.params, layer, x, pos, k_dev, v_dev,
+                                                  mask)
         if on:
             t = tr.phase("block", f"block L{layer}", t, at)
+        k_host = self._host(k_new)
         completed = self.managers[j].append_token_rows(
-            self._host(k_new), self._host(v_new), self._step_active)
+            k_host, k_host if self.kv_planes == 1 else self._host(v_new), self._step_active)
         if on:
             t = tr.phase("tail", f"tail L{layer}", t, at)
         for bi, k_g, _ in completed:
@@ -1173,6 +1203,10 @@ class KVSwapEngine:
             if on:
                 t = tr.phase("upload", f"staged L{layer}", t, at)
         del up   # frees the copy's device buffer before the block allocates
+        if self.kv_planes == 1:
+            k_ctx, v_ctx = self._expand(layer, k_ctx)
+            if on:
+                t = tr.phase("gather", f"expand L{layer}", t, at)
         x, k_new, v_new = self.model.decode_block(
             self.params, layer, x, pos, k_ctx, v_ctx, tok_mask)
         if on:
@@ -1183,20 +1217,29 @@ class KVSwapEngine:
         rows = torch.from_numpy(act).to(self.device)
         fidx = torch.from_numpy(mgr.rolling.fills[act]).to(self.device)
         self._tail_k[j][rows, fidx] = k_new[rows].float()
-        self._tail_v[j][rows, fidx] = v_new[rows].float()
+        if self.kv_planes == 2:
+            self._tail_v[j][rows, fidx] = v_new[rows].float()
         if on:
             t = tr.phase("tail", f"tail L{layer}", t, at)
         for bi in mgr.rolling.advance_rows(self._step_active):
             # group complete: cast exactly as the host path stores it; one
             # download feeds the disk spill, k_lr compresses the device copy
-            grp = torch.stack([self._tail_k[j][bi], self._tail_v[j][bi]]).to(self._dtype)
+            grp = torch.stack([self._tail_k[j][bi], self._tail_v[j][bi]][:self.kv_planes]
+                              ).to(self._dtype)
             kv_np = grp.cpu().numpy()
-            mgr.spill_group_row(bi, kv_np[0], kv_np[1])
+            mgr.spill_group_row(bi, kv_np[0], kv_np[-1])
             flush_rows.append((j, bi, compress_k(grp[0][None].float(), self.adapter)))
         if on:
             tr.phase("spill", f"spill L{layer}", t, at)
         self._charge_layer_compute(k_ctx.shape[1] + 1, t_compute)
         return x
+
+    def _expand(self, layer: int, rec_ctx: torch.Tensor):
+        """An MLA layer's gathered records decompressed into its heads' K
+        and V on the device (``model.expand_context``)."""
+        if self.obs.enabled:
+            self._m_expanded.inc(rec_ctx.shape[0] * rec_ctx.shape[1])
+        return self.model.expand_context(self.params, layer, rec_ctx)
 
     def _charge_layer_compute(self, n_ctx: int, t_compute: list[float]) -> None:
         # only active rows charge modeled time (retired/empty slots are free)

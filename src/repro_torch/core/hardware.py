@@ -8,6 +8,7 @@ TPU v5e constants (the deployment target).
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +51,15 @@ class ModelDims:
     head_dim: int
     d_ff: int
     dtype_bytes: int = 2  # fp16 on the Jetson target
+    kv_planes: ClassVar[int] = 2   # cached planes a token: K and V
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentDims(ModelDims):
+    """:class:`ModelDims` of a model that caches one latent record a token
+    (MLA): ``n_kv_heads`` 1 and ``head_dim`` the record's floats."""
+
+    kv_planes: ClassVar[int] = 1
 
 
 def decode_layer_flops(dims: ModelDims, n_ctx: int, batch: int) -> float:
@@ -65,7 +75,7 @@ def decode_layer_bytes(dims: ModelDims, n_ctx: int, batch: int) -> float:
     """Bytes touched: layer weights (stream once) + KV context + activations."""
     d, h, hk, hd, ff = dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim, dims.d_ff
     w = (d * h * hd + 2 * d * hk * hd + h * hd * d + 3 * d * ff) * dims.dtype_bytes
-    kv = batch * n_ctx * 2 * hk * hd * dims.dtype_bytes
+    kv = batch * n_ctx * dims.kv_planes * hk * hd * dims.dtype_bytes
     act = batch * d * dims.dtype_bytes * 8
     return w + kv + act
 
@@ -94,7 +104,7 @@ def prefill_layer_bytes(dims: ModelDims, n_new: int, n_ctx0: int, batch: int) ->
     for the whole chunk; KV and activations scale with the tokens."""
     d, h, hk, hd, ff = dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim, dims.d_ff
     w = (d * h * hd + 2 * d * hk * hd + h * hd * d + 3 * d * ff) * dims.dtype_bytes
-    kv = batch * (n_ctx0 + n_new) * 2 * hk * hd * dims.dtype_bytes
+    kv = batch * (n_ctx0 + n_new) * dims.kv_planes * hk * hd * dims.dtype_bytes
     act = batch * n_new * d * dims.dtype_bytes * 8
     return w + kv + act
 

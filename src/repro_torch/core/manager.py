@@ -188,7 +188,8 @@ class KVCacheManager:
         """Materialize the logical KV view.
 
         Returns ``(k, v, token_mask, positions)`` with
-        ``k, v: [B, M*G + G, H_kv, d]``, ``token_mask: [B, M*G + G]``,
+        ``k, v: [B, M*G + G, H_kv, d]`` (one array as both for latent
+        records), ``token_mask: [B, M*G + G]``,
         ``positions: [B, M*G + G]`` absolute token positions (for kernels
         that need them; RoPE is already baked into cached K).
 
@@ -205,7 +206,7 @@ class KVCacheManager:
         hkv, d = self.rolling.k.shape[2], self.rolling.k.shape[3]
         n_tok = m * g + g
         k = np.zeros((b, n_tok, hkv, d), dtype=self.rolling.k.dtype)
-        v = np.zeros_like(k)
+        v = k if self.rolling.planes == 1 else np.zeros_like(k)   # one plane: once
         mask = np.zeros((b, n_tok), dtype=bool)
         pos = np.zeros((b, n_tok), dtype=np.int64)
         for bi in range(b):
@@ -215,10 +216,10 @@ class KVCacheManager:
                 if table.slots[bi, mi] == -2:   # staged (reuse buffer pinned full)
                     kv = table.staged[(bi, int(table.group_ids[bi, mi]))]
                 else:
-                    kv = self.reuse.slots[bi, table.slots[bi, mi]]  # [G, 2, Hkv, d]
+                    kv = self.reuse.slots[bi, table.slots[bi, mi]]  # [G, P, Hkv, d]
                 sl = slice(mi * g, (mi + 1) * g)
                 k[bi, sl] = kv[:, 0]
-                v[bi, sl] = kv[:, 1]
+                v[bi, sl] = kv[:, -1]
                 mask[bi, sl] = True
                 gid = table.group_ids[bi, mi]
                 pos[bi, sl] = np.arange(gid * g, (gid + 1) * g)

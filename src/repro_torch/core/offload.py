@@ -313,12 +313,13 @@ class IOAccountant:
 
 class KVRun(tuple):
     """One read run as ``(k, v)``, each ``[count, G, H_kv, d]``: the two
-    halves of ``block``, the ``[count, G, 2, H_kv, d]`` extent as the store
+    halves of ``block``, the ``[count, G, P, H_kv, d]`` extent as the store
     holds it (dequantised for an int8 store), so a reader that wants whole
-    groups takes ``block[i]`` without restacking the halves."""
+    groups takes ``block[i]`` without restacking the halves.  A store of
+    one plane (``P = 1``, latent records) gives its one plane as both."""
 
     def __new__(cls, block: np.ndarray):
-        run = super().__new__(cls, (block[:, :, 0], block[:, :, 1]))
+        run = super().__new__(cls, (block[:, :, 0], block[:, :, -1]))
         run.block = block
         return run
 
@@ -326,10 +327,13 @@ class KVRun(tuple):
 class KVDiskStore:
     """File-backed full KV cache with group-contiguous layout.
 
-    Logical shape: ``[layers, batch, max_groups, G, 2, H_kv, d]`` where axis 4
-    is (K, V).  The innermost 4 axes of one ``(layer, batch, group)`` index are
-    contiguous on disk, so one group load is one sequential read of
-    ``group_nbytes`` bytes.
+    Logical shape: ``[layers, batch, max_groups, G, P, H_kv, d]`` where axis
+    4 is (K, V) (``planes`` P = 2), or a token's one latent record (``P =
+    1``: MLA, whose V is derived from the record, so the ``v`` the writers
+    take is ignored and the readers return the record as both).  The
+    innermost 4 axes of one ``(layer, batch, group)`` index are contiguous
+    on disk, so one group load is one sequential read of ``group_nbytes``
+    bytes.
     """
 
     def __init__(
@@ -345,6 +349,7 @@ class KVDiskStore:
         path: str | None = None,
         accountant: IOAccountant | None = None,
         quant_bits: int = 0,
+        planes: int = 2,
     ):
         """``quant_bits=8`` stores int8 per-group-scaled KV on disk (paper §7
         "low-bit KV" combination): group reads shrink ~dtype_size×, trading a
@@ -355,6 +360,9 @@ class KVDiskStore:
         self.group_size = group_size
         self.n_kv_heads = n_kv_heads
         self.head_dim = head_dim
+        if planes not in (1, 2):
+            raise ValueError("planes must be 1 (latent records) or 2 (K and V)")
+        self.planes = planes
         self.dtype = np.dtype(dtype)
         self.accountant = accountant
         if quant_bits not in (0, 8):
@@ -364,7 +372,7 @@ class KVDiskStore:
         self._scales = (np.zeros((n_layers, batch, max_groups), np.float32)
                         if quant_bits == 8 else None)
 
-        shape = (n_layers, batch, max_groups, group_size, 2, n_kv_heads, head_dim)
+        shape = (n_layers, batch, max_groups, group_size, planes, n_kv_heads, head_dim)
         if path is None:
             fd, path = tempfile.mkstemp(prefix="kvswap_store_", suffix=".bin")
             os.close(fd)
@@ -401,13 +409,17 @@ class KVDiskStore:
     # -- geometry ---------------------------------------------------------
     @property
     def group_nbytes(self) -> int:
-        return (self.group_size * 2 * self.n_kv_heads * self.head_dim
-                * self._store_dtype.itemsize)
+        return self.group_size * self.entry_nbytes
 
     @property
     def entry_nbytes(self) -> int:
-        """One token's K+V across heads — the paper's 'KV entry'."""
-        return 2 * self.n_kv_heads * self.head_dim * self._store_dtype.itemsize
+        """One token's K+V across heads — the paper's 'KV entry' (its
+        latent record with one plane)."""
+        return self.planes * self.n_kv_heads * self.head_dim * self._store_dtype.itemsize
+
+    def _stack(self, k: np.ndarray, v: np.ndarray, axis: int) -> np.ndarray:
+        """The planes of a block stacked on ``axis``: K and V, or K alone."""
+        return np.stack([k, v] if self.planes == 2 else [k], axis=axis)
 
     def total_bytes_on_disk(self) -> int:
         return int(self.n_groups.sum()) * self.group_nbytes
@@ -425,7 +437,7 @@ class KVDiskStore:
         if ng > 0:
             kg = k[:, : ng * g].reshape(b, ng, g, self.n_kv_heads, self.head_dim)
             vg = v[:, : ng * g].reshape(b, ng, g, self.n_kv_heads, self.head_dim)
-            block = np.stack([kg, vg], axis=3)  # [B, ng, G, 2, H, d]
+            block = self._stack(kg, vg, 3)  # [B, ng, G, P, H, d]
             if self.quant_bits == 8:
                 qblk, scale = self._quant(block)
                 self._mm[layer, :, :ng] = qblk
@@ -457,7 +469,7 @@ class KVDiskStore:
         if ng > 0:
             kg = k[: ng * g].reshape(ng, g, self.n_kv_heads, self.head_dim)
             vg = v[: ng * g].reshape(ng, g, self.n_kv_heads, self.head_dim)
-            block = np.stack([kg, vg], axis=2)  # [ng, G, 2, H, d]
+            block = self._stack(kg, vg, 2)  # [ng, G, P, H, d]
             if self.quant_bits == 8:
                 qblk, scale = self._quant(block)
                 self._mm[layer, batch_idx, :ng] = qblk
@@ -489,7 +501,7 @@ class KVDiskStore:
         gi = int(self.n_groups[layer, batch_idx])
         if gi >= self.max_groups:
             raise RuntimeError(f"KVDiskStore overflow: layer={layer} batch={batch_idx}")
-        block = np.stack([k_group, v_group], axis=1)  # [G, 2, H, d]
+        block = self._stack(k_group, v_group, 1)  # [G, P, H, d]
         if self.quant_bits == 8:
             qblk, scale = self._quant(block)
             self._mm[layer, batch_idx, gi] = qblk
@@ -575,7 +587,7 @@ class KVDiskStore:
         if self.accountant is not None:
             self.accountant.charge_read(self.batch * ng * self.group_nbytes, self.batch)
         k = blk[:, :, :, 0].reshape(self.batch, ng * self.group_size, self.n_kv_heads, self.head_dim)
-        v = blk[:, :, :, 1].reshape(self.batch, ng * self.group_size, self.n_kv_heads, self.head_dim)
+        v = blk[:, :, :, -1].reshape(self.batch, ng * self.group_size, self.n_kv_heads, self.head_dim)
         return k, v
 
     # -- lifecycle --------------------------------------------------------

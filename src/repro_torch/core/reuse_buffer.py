@@ -50,18 +50,21 @@ class DeviceReuseMirror:
     """
 
     def __init__(self, slots: np.ndarray, slot_table: np.ndarray | None, device):
-        # slots: host [B, C, G, 2, H_kv, d] → split K/V device mirrors.  At
+        # slots: host [B, C, G, P, H_kv, d] → split K/V device mirrors (one
+        # mirror, as both, for a single plane of latent records).  At
         # attach time the reuse buffer is normally empty (first decode step
         # after prefill): allocate zeros on device instead of uploading them.
         self.device = torch.device(device)
         shape = slots.shape[:3] + slots.shape[4:]
+        self.planes = planes = slots.shape[3]
         if slot_table is not None and (slot_table == -1).all():
             dtype = torch.from_numpy(slots[:0]).dtype
             self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-            self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+            self.v = self.k if planes == 1 else torch.zeros(shape, dtype=dtype, device=self.device)
         else:
             self.k = torch.from_numpy(np.ascontiguousarray(slots[:, :, :, 0])).to(self.device)
-            self.v = torch.from_numpy(np.ascontiguousarray(slots[:, :, :, 1])).to(self.device)
+            self.v = self.k if planes == 1 else torch.from_numpy(
+                np.ascontiguousarray(slots[:, :, :, 1])).to(self.device)
         self.capacity = slots.shape[1]
         self.uploaded_bytes = 0
         self.uploaded_groups = 0
@@ -73,14 +76,15 @@ class DeviceReuseMirror:
 
     @property
     def nbytes(self) -> int:
-        return self.k.numel() * self.k.element_size() * 2
+        return self.k.numel() * self.k.element_size() * self.planes
 
     def scatter(self, rows: torch.Tensor, slots: torch.Tensor, kv: torch.Tensor) -> int:
-        """Write ``kv [n, G, 2, H_kv, d]`` (on the device) into slots
+        """Write ``kv [n, G, P, H_kv, d]`` (on the device) into slots
         ``(rows, slots)``, ``n`` distinct pairs.  Returns the payload bytes
         uploaded."""
         self.k.index_put_((rows, slots), kv[:, :, 0])
-        self.v.index_put_((rows, slots), kv[:, :, 1])
+        if self.planes == 2:
+            self.v.index_put_((rows, slots), kv[:, :, 1])
         nbytes = kv.numel() * kv.element_size()
         self.uploaded_bytes += nbytes
         self.uploaded_groups += kv.shape[0]
@@ -91,12 +95,14 @@ class DeviceReuseMirror:
 class ReuseBuffer:
     """FIFO cache of KV groups for one layer of one batched sequence set."""
 
-    def __init__(self, *, batch: int, capacity: int, group_size: int, n_kv_heads: int, head_dim: int, dtype=np.float32):
+    def __init__(self, *, batch: int, capacity: int, group_size: int, n_kv_heads: int,
+                 head_dim: int, dtype=np.float32, planes: int = 2):
         self.batch = batch
         self.capacity = capacity
         self.group_size = group_size
-        # slot storage: [B, C, G, 2, H_kv, d]
-        self.slots = np.zeros((batch, capacity, group_size, 2, n_kv_heads, head_dim), dtype=dtype)
+        # slot storage: [B, C, G, P, H_kv, d] (P: K and V, or one latent record)
+        self.slots = np.zeros((batch, capacity, group_size, planes, n_kv_heads, head_dim),
+                              dtype=dtype)
         # slot_table[b][slot] = group id or -1
         self.slot_table = np.full((batch, capacity), -1, dtype=np.int64)
         self._fifo: list[collections.deque] = [collections.deque() for _ in range(batch)]

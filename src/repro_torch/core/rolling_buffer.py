@@ -21,11 +21,14 @@ import numpy as np
 class RollingBuffer:
     """Per-layer rolling buffer over a shared batch. Host-side (numpy)."""
 
-    def __init__(self, *, batch: int, group_size: int, n_kv_heads: int, head_dim: int, dtype=np.float32):
+    def __init__(self, *, batch: int, group_size: int, n_kv_heads: int, head_dim: int, dtype=np.float32,
+                 planes: int = 2):
         self.batch = batch
         self.group_size = group_size
+        self.planes = planes
         self.k = np.zeros((batch, group_size, n_kv_heads, head_dim), dtype=dtype)
-        self.v = np.zeros_like(self.k)
+        # one plane (latent records): V is the record, held once
+        self.v = self.k if planes == 1 else np.zeros_like(self.k)
         self.fills = np.zeros(batch, dtype=np.int64)  # tokens held, per row
 
     @property
@@ -39,7 +42,7 @@ class RollingBuffer:
 
     @property
     def nbytes(self) -> int:
-        return self.k.nbytes + self.v.nbytes
+        return self.k.nbytes * self.planes
 
     # -- per-row lifecycle -------------------------------------------------
     def append_rows(self, k_new: np.ndarray, v_new: np.ndarray,
@@ -53,10 +56,13 @@ class RollingBuffer:
         for bi in np.flatnonzero(active):
             f = int(self.fills[bi])
             self.k[bi, f] = k_new[bi]
-            self.v[bi, f] = v_new[bi]
+            if self.planes == 2:
+                self.v[bi, f] = v_new[bi]
             self.fills[bi] = f + 1
             if f + 1 == self.group_size:
-                completed.append((int(bi), self.k[bi].copy(), self.v[bi].copy()))
+                k_g = self.k[bi].copy()
+                completed.append((int(bi), k_g,
+                                  k_g if self.planes == 1 else self.v[bi].copy()))
                 self.fills[bi] = 0
         return completed
 

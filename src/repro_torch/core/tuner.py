@@ -143,7 +143,7 @@ def memory_bytes(inp: TunerInputs, *, sigma: float, g: int, m: int, c: int, b: i
     dims = inp.dims
     feat = dims.n_kv_heads * dims.head_dim
     r = max(1, int(round(feat / sigma)))
-    entry = 2 * feat * inp.dtype_bytes
+    entry = dims.kv_planes * feat * inp.dtype_bytes
     k_lr = b * s * r * inp.dtype_bytes * inp.n_layers
     reuse = c * b * g * entry * inp.n_layers
     rolling = b * g * entry * inp.n_layers
@@ -166,7 +166,7 @@ def warm_hit_fraction(inp: TunerInputs, *, g: int, m: int, b: int,
     if inp.warm_budget_bytes <= 0 or misses_per_layer <= 0:
         return 0.0
     from repro_torch.tiers import INDEX_ENTRY_BYTES
-    entry_q = 2 * inp.dims.n_kv_heads * inp.dims.head_dim  # int8: 1 B/elem
+    entry_q = inp.dims.kv_planes * inp.dims.n_kv_heads * inp.dims.head_dim  # int8: 1 B/elem
     per_group = g * entry_q + 4 + INDEX_ENTRY_BYTES
     capacity_groups = inp.warm_budget_bytes / per_group
     window = 8  # steps of eviction churn the tier should cover
@@ -180,7 +180,7 @@ def t_io(inp: TunerInputs, *, g: int, m: int, c: int, b: int,
     for true misses plus (with ``warm_budget_bytes``) memcpy+dequantize for
     the re-reads the warm tier absorbs."""
     dims = inp.dims
-    entry = 2 * dims.n_kv_heads * dims.head_dim * inp.dtype_bytes
+    entry = dims.kv_planes * dims.n_kv_heads * dims.head_dim * inp.dtype_bytes
     rr = lookup_reuse(reuse_table, c)
     misses = m * (1.0 - rr)
     wf = warm_hit_fraction(inp, g=g, m=m, b=b, misses_per_layer=misses)
@@ -190,7 +190,7 @@ def t_io(inp: TunerInputs, *, g: int, m: int, c: int, b: int,
     t = inp.disk_spec.read_time(nbytes, nreq)
     if wf > 0.0:
         warm_groups = misses * wf * b
-        q_bytes = warm_groups * g * 2 * dims.n_kv_heads * dims.head_dim
+        q_bytes = warm_groups * g * dims.kv_planes * dims.n_kv_heads * dims.head_dim
         out_bytes = q_bytes * inp.dtype_bytes
         t += inp.compute.op_time(2.0 * q_bytes, q_bytes + out_bytes)
     return t

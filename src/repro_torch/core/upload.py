@@ -59,13 +59,15 @@ class DeviceUpload:
     fill: torch.Tensor          # [B] int64, valid rolling-tail tokens
     staged_rows: torch.Tensor   # [n_staged·G] row of each staged token
     staged_toks: torch.Tensor   # [n_staged·G] its context position
-    staged_kv: torch.Tensor     # [n_staged·G, 2, H_kv, d] its K and V
+    staged_kv: torch.Tensor     # [n_staged·G, P, H_kv, d] its K and V (or record)
 
     def put_staged(self, k_ctx: torch.Tensor, v_ctx: torch.Tensor) -> None:
-        """Overwrite the staged groups' rows of a gathered context."""
+        """Overwrite the staged groups' rows of a gathered context (``k_ctx``
+        alone where the groups hold one plane, latent records)."""
         idx = (self.staged_rows, self.staged_toks)
         k_ctx.index_put_(idx, self.staged_kv[:, 0])
-        v_ctx.index_put_(idx, self.staged_kv[:, 1])
+        if self.staged_kv.shape[1] == 2:
+            v_ctx.index_put_(idx, self.staged_kv[:, 1])
 
 
 def staged_tokens(slots: np.ndarray, g: int) -> tuple[np.ndarray, ...]:
@@ -95,7 +97,7 @@ class SlabRing:
         self.device = torch.device(device)
         self.dtype = np.dtype(dtype)
         self.torch_dtype = torch.from_numpy(np.zeros(0, self.dtype)).dtype
-        self.group_shape = tuple(group_shape)                      # (G, 2, H_kv, d)
+        self.group_shape = tuple(group_shape)                      # (G, P, H_kv, d)
         self.group_numel = int(np.prod(self.group_shape))
         self.group_nbytes = self.group_numel * self.dtype.itemsize
         groups = batch * n_select

@@ -53,6 +53,9 @@ class PrefillEngine:
         kinds = getattr(model, "layer_kinds", ("kv",) * model.n_layers)
         if any(k != "kv" for k in kinds):
             raise ValueError("PrefillEngine requires attention-only models")
+        if getattr(model, "kv_planes", 2) == 1:
+            raise ValueError("PrefillEngine hands prompts over through the prefix cache, "
+                             "which latent attention (MLA) cannot use")
         self.name = name
         self.engine = KVSwapEngine(model, params, engine_cfg, batch=1,
                                    calib_k=calib_k, adapter=adapter, obs=obs,

@@ -1155,7 +1155,12 @@ def compare_routes(device=None, *, seed: int = 0) -> dict:
 
 def model_dims(cfg: ModelConfig) -> hardware.ModelDims:
     """The tuner's dims of a config (``d_ff = cfg.d_ff or 4·d_model``, as the
-    reference's ``examples/offline_tuning.py`` builds them)."""
+    reference's ``examples/offline_tuning.py`` builds them).  A latent
+    attention config's cached token is one record of ``kv_lora + rope``
+    floats (one "head", one plane), as its engine stores it."""
+    if cfg.latent:
+        return hardware.LatentDims(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=1,
+                                   head_dim=cfg.record_dim, d_ff=cfg.d_ff or 4 * cfg.d_model)
     return hardware.ModelDims(d_model=cfg.d_model, n_heads=cfg.n_heads,
                               n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
                               d_ff=cfg.d_ff or 4 * cfg.d_model)

@@ -81,6 +81,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def yarn_inv_freq(dim: int, theta: float, yarn, device=None) -> torch.Tensor:
+    """YaRN's NTK-by-parts inverse frequencies (arXiv:2309.00071) on ``dim``
+    rotary dims, as DeepSeek-V3's ``yarn`` rope computes them: a dimension
+    that turns more than ``beta_fast`` times over the original context keeps
+    its frequency, one that turns fewer than ``beta_slow`` times has it
+    divided by ``factor``, and a linear ramp joins the two (its ends floored
+    and ceiled to whole dims).  Computed in float64 and rounded once: at
+    positions of thousands an ulp of a frequency turns a pair by 1e-4."""
+    def corr_dim(rotations: float) -> float:
+        return (dim * math.log(yarn.original_max_position / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(corr_dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(corr_dim(yarn.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    f64 = dict(dtype=torch.float64, device=device)
+    extra = 1.0 / theta ** (torch.arange(0, dim, 2, **f64) / dim)
+    ramp = ((torch.arange(dim // 2, **f64) - low) / (high - low)).clamp(0.0, 1.0)
+    return (extra / yarn.factor * ramp + extra * (1.0 - ramp)).float()
+
+
+def apply_rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
+                           inv_freq: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding on interleaved pairs: ``(x[2i], x[2i+1])`` turned by
+    ``positions · inv_freq[i]``, the output in the same order.  Shapes as
+    :func:`apply_rope`."""
+    angles = positions[..., None].float() * inv_freq
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    pairs = x.float().unflatten(-1, (-1, 2))
+    x1, x2 = pairs[..., 0], pairs[..., 1]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).flatten(-2)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # GQA attention
 # --------------------------------------------------------------------------
@@ -501,7 +537,7 @@ def decode_attention(q: torch.Tensor, k_ctx: torch.Tensor, v_ctx: torch.Tensor,
 
 def gather_slots(dev_k: torch.Tensor, dev_v: torch.Tensor, slots: torch.Tensor,
                  tail_k: torch.Tensor, tail_v: torch.Tensor,
-                 tail_fill: torch.Tensor):
+                 tail_fill: torch.Tensor, planes: int = 2):
     """Assemble the decode context from persistent device buffers.
 
     ``dev_k/dev_v [B, C, G, H_kv, d]`` is the reuse buffer's device mirror;
@@ -516,18 +552,100 @@ def gather_slots(dev_k: torch.Tensor, dev_v: torch.Tensor, slots: torch.Tensor,
     d]`` — the layout the host-gather path builds, except that disabled
     slots hold stale finite data instead of zeros; their attention weight
     is exactly 0 either way, so both paths give bit-identical outputs.
+    A cache of one plane (``planes`` 1, latent records: ``dev_v`` and
+    ``tail_v`` are ignored) is gathered once and returned as both.
     """
     b, m = slots.shape
     c, g = dev_k.shape[1], dev_k.shape[2]
     idx = slots.clamp(0, c - 1)
     rows = torch.arange(b, device=slots.device)[:, None]
-    k_ctx = dev_k[rows, idx].reshape(b, m * g, *dev_k.shape[3:])
-    v_ctx = dev_v[rows, idx].reshape(b, m * g, *dev_v.shape[3:])
     tok_mask = torch.repeat_interleave(slots != -1, g, dim=1)            # [B, M·G]
-    k_ctx = torch.cat([k_ctx, tail_k.to(dev_k.dtype)], dim=1)
-    v_ctx = torch.cat([v_ctx, tail_v.to(dev_v.dtype)], dim=1)
+    k_ctx = torch.cat([dev_k[rows, idx].reshape(b, m * g, *dev_k.shape[3:]),
+                       tail_k.to(dev_k.dtype)], dim=1)
+    v_ctx = k_ctx if planes == 1 else torch.cat(
+        [dev_v[rows, idx].reshape(b, m * g, *dev_v.shape[3:]), tail_v.to(dev_v.dtype)], dim=1)
     tail_mask = torch.arange(g, device=slots.device)[None, :] < tail_fill[:, None]
     return k_ctx, v_ctx, torch.cat([tok_mask, tail_mask], dim=1)
+
+
+def mla_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         chunk: int = 512) -> torch.Tensor:
+    """Causal attention over decompressed heads, ``chunk`` queries at a time
+    (:func:`chunked_causal_attention` over the keys up to each chunk's
+    end), so a long prompt's scores are never held whole.  ``q, k [B, S,
+    H, d_qk]``, ``v [B, S, H, d_v]`` → ``[B, S, H, d_v]``."""
+    s = q.shape[1]
+    if s <= chunk:
+        return causal_attention(q, k, v)
+    return torch.cat([chunked_causal_attention(q[:, i:i + chunk], k[:, :i + chunk],
+                                               v[:, :i + chunk], i)
+                      for i in range(0, s, chunk)], dim=1)
+
+
+# --------------------------------------------------------------------------
+# multi-head latent attention (MLA, DeepSeek-V2/V3)
+# --------------------------------------------------------------------------
+#
+# A layer caches one latent record a token, ``[RMSNorm(c_kv) ‖ RoPE(k_pe)]``
+# (``kv_lora + rope`` floats, shared by every head); its heads' keys and
+# values are decompressed from it through ``wkv_b``.  Params of an MLA
+# block's ``attn``: ``wq_a [D, q_lora]``, ``q_norm``, ``wq_b [q_lora,
+# H·(nope + rope)]``, ``wkv_a [D, kv_lora + rope]``, ``kv_norm``, ``wkv_b
+# [kv_lora, H·(nope + v)]``, ``wo [H·v, D]``.
+
+
+def init_mla(*, generator: torch.Generator, device, d_model: int, n_heads: int,
+             q_lora: int, kv_lora: int, nope: int, rope: int, v_dim: int,
+             dtype=torch.float32) -> dict:
+    """MLA weights, dense ``N(0, 1/fan_in)``, norm scales 1."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    ones = lambda n: {"scale": torch.ones(n, device=device, dtype=dtype)}
+    return {"wq_a": dense_init(d_model, q_lora, **kw), "q_norm": ones(q_lora),
+            "wq_b": dense_init(q_lora, n_heads * (nope + rope), **kw),
+            "wkv_a": dense_init(d_model, kv_lora + rope, **kw), "kv_norm": ones(kv_lora),
+            "wkv_b": dense_init(kv_lora, n_heads * (nope + v_dim), **kw),
+            "wo": dense_init(n_heads * v_dim, d_model, **kw)}
+
+
+def mla_queries(p, h: torch.Tensor, positions: torch.Tensor, *, n_heads: int, nope: int,
+                inv_freq: torch.Tensor) -> torch.Tensor:
+    """``h [..., D]`` (normed) → ``q [..., H, nope + rope]``: ``[q_nope ‖
+    RoPE(q_pe)]`` of ``RMSNorm(h wq_a) wq_b``."""
+    q = rmsnorm(p["q_norm"], h @ p["wq_a"]) @ p["wq_b"]
+    q = q.reshape(*q.shape[:-1], n_heads, -1)
+    return torch.cat([q[..., :nope], apply_rope_interleaved(q[..., nope:], positions, inv_freq)],
+                     dim=-1)
+
+
+def mla_record(p, h: torch.Tensor, positions: torch.Tensor, *,
+               inv_freq: torch.Tensor) -> torch.Tensor:
+    """``h [..., D]`` (normed) → the latent record ``[..., kv_lora + rope]``:
+    ``[RMSNorm(c_kv) ‖ RoPE(k_pe)]`` of ``[c_kv ‖ k_pe] = h wkv_a``."""
+    kv_lora = p["kv_norm"]["scale"].shape[0]
+    kv = h @ p["wkv_a"]
+    k_pe = apply_rope_interleaved(kv[..., None, kv_lora:], positions, inv_freq)[..., 0, :]
+    return torch.cat([rmsnorm(p["kv_norm"], kv[..., :kv_lora]), k_pe], dim=-1)
+
+
+def mla_expand(p, rec: torch.Tensor, *, n_heads: int, nope: int):
+    """Latent records ``[..., kv_lora + rope]`` → each head's ``k [..., H,
+    nope + rope]`` (``[c wkv_b's key part ‖ k_pe]``, ``k_pe`` shared by the
+    heads) and ``v [..., H, v]``, contiguous."""
+    kv_lora = p["kv_norm"]["scale"].shape[0]
+    kv = (rec[..., :kv_lora] @ p["wkv_b"]).reshape(*rec.shape[:-1], n_heads, -1)
+    k_pe = rec[..., None, kv_lora:].expand(*rec.shape[:-1], n_heads, rec.shape[-1] - kv_lora)
+    return torch.cat([kv[..., :nope], k_pe], dim=-1), kv[..., nope:].contiguous()
+
+
+def mla_absorbed_queries(p, q: torch.Tensor, *, nope: int) -> torch.Tensor:
+    """Each head's query against the latent records: ``q [..., H, nope +
+    rope]`` → ``[q_nope_h W_UK,hᵀ ‖ q_pe_h]`` ``[..., H, kv_lora + rope]``,
+    ``W_UK,h`` head ``h``'s key part of ``wkv_b``, so that its product with
+    a record is the head's exact logit before scaling."""
+    kv_lora = p["kv_norm"]["scale"].shape[0]
+    w_uk = p["wkv_b"].reshape(kv_lora, q.shape[-2], -1)[..., :nope]          # [R, H, nope]
+    return torch.cat([torch.einsum("...hn,rhn->...hr", q[..., :nope], w_uk), q[..., nope:]],
+                     dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -589,18 +707,23 @@ def _moe_constrain(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_moe(*, generator: torch.Generator, device, d_model: int, d_ff: int,
-             n_experts: int, dtype=torch.float32, shared_d_ff: int = 0) -> dict:
+             n_experts: int, dtype=torch.float32, shared_d_ff: int = 0,
+             n_held: int = 0) -> dict:
     """MoE weights in the reference layout, drawn from ``generator``: the
     router ``N(0, 0.02²)``, the experts' gate and up ``N(0, 1/d_model)`` and
-    down ``N(0, 1/d_ff)``, and an optional dense shared expert."""
+    down ``N(0, 1/d_ff)``, and an optional dense shared expert.  With
+    ``n_held`` the router keeps its ``n_experts`` outputs and only the first
+    ``n_held`` experts are drawn (this device's share of an expert-parallel
+    layer)."""
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, device=device, dtype=dtype).mul_(scale)
 
+    el = n_held or n_experts
     p = {
         "router": normal((d_model, n_experts), 0.02),
-        "w_gate": normal((n_experts, d_model, d_ff), 1.0 / math.sqrt(d_model)),
-        "w_up": normal((n_experts, d_model, d_ff), 1.0 / math.sqrt(d_model)),
-        "w_down": normal((n_experts, d_ff, d_model), 1.0 / math.sqrt(d_ff)),
+        "w_gate": normal((el, d_model, d_ff), 1.0 / math.sqrt(d_model)),
+        "w_up": normal((el, d_model, d_ff), 1.0 / math.sqrt(d_model)),
+        "w_down": normal((el, d_ff, d_model), 1.0 / math.sqrt(d_ff)),
     }
     if shared_d_ff:
         p["shared"] = {"w_gate": normal((d_model, shared_d_ff), 1.0 / math.sqrt(d_model)),
@@ -615,7 +738,12 @@ def moe_capacity(s: int, top_k: int, n_experts: int, capacity_factor: float) -> 
     return max(1, int(np.ceil(s * top_k / n_experts * capacity_factor)))
 
 
-def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
+ROUTER_SCORES = {"softmax": lambda logits: torch.softmax(logits, dim=-1),
+                 "sigmoid": torch.sigmoid}
+
+
+def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
+        score: str = "softmax"):
     """Top-k routed MoE with capacity-bounded dispatch, as the reference.
 
     ``x: [B, S, D]`` → ``(y [B, S, D], aux_loss scalar)``.  Each row's
@@ -627,7 +755,17 @@ def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
     outputs come back weighted by their renormalised gates.  The top k are
     taken by a stable descending sort, so equal probabilities rank the lower
     expert first, as ``jax.lax.top_k`` does.  ``aux_loss`` is the Switch
-    load-balance loss.
+    load-balance loss.  ``score`` names the router's scores
+    (:data:`ROUTER_SCORES`: a softmax over the experts, or DeepSeek-V3's
+    independent sigmoids); the gates are the chosen scores over their sum.
+    A ``capacity_factor`` of 0 or less is dropless: the capacity is the
+    most assignments any expert computed here takes in the call.
+
+    Plain ``w_gate/w_up/w_down`` that hold fewer experts than the router
+    routes over (``El < E``) are this device's share of an expert-parallel
+    layer, experts ``[0, El)``: every token is routed over all ``E``, and
+    ``y`` is the part of the output those experts give (the shared expert
+    whole).
 
     On DTensors the routing, dispatch and combine run on each rank's shard
     (:func:`~repro_torch.sharding.partition.local_region`): a rank routes
@@ -642,10 +780,11 @@ def moe(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
     The means of the load-balance loss come back as partial sums of each
     rank's share.
     """
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, score=score)
     if _MOE_PSPECS is not None and "buf" in _MOE_PSPECS and mesh_of(x) is not None:
-        y, me, ce = _moe_three_regions(p, x, top_k=top_k, capacity_factor=capacity_factor)
+        y, me, ce = _moe_three_regions(p, x, **kw)
     else:
-        y, me, ce = _moe_one_region(p, x, top_k=top_k, capacity_factor=capacity_factor)
+        y, me, ce = _moe_one_region(p, x, **kw)
     y = _moe_constrain("y", y)
     if "shared" in p:
         y = y + swiglu(p["shared"], x)
@@ -663,7 +802,7 @@ def _moe_stats(mesh, *axes):
     return partial_placements(mesh, P(), names), axis_size(mesh, names)
 
 
-def _moe_one_region(p, x: torch.Tensor, *, top_k: int, capacity_factor: float):
+def _moe_one_region(p, x: torch.Tensor, *, top_k: int, capacity_factor: float, score: str):
     e = p["router"].shape[1]
     w_gate = p["w_gate"]
 
@@ -684,11 +823,12 @@ def _moe_one_region(p, x: torch.Tensor, *, top_k: int, capacity_factor: float):
                  stat, stat], kw)
 
     return local_region(
-        functools.partial(_moe_routed, top_k=top_k, capacity_factor=capacity_factor),
+        functools.partial(_moe_routed, top_k=top_k, capacity_factor=capacity_factor,
+                          score=score),
         (p["router"], w_gate, p["w_up"], p["w_down"], x), layout)
 
 
-def _moe_three_regions(p, x: torch.Tensor, *, top_k: int, capacity_factor: float):
+def _moe_three_regions(p, x: torch.Tensor, *, top_k: int, capacity_factor: float, score: str):
     """:func:`moe`'s routed experts as dispatch, experts and combine, each
     on each rank's shard, with the ``buf`` hook's layout between them."""
     e = p["router"].shape[1]
@@ -702,7 +842,8 @@ def _moe_three_regions(p, x: torch.Tensor, *, top_k: int, capacity_factor: float
                 {"shares": shares})
 
     buf, expert_of, pos_safe, gates, keep, me, ce = local_region(
-        functools.partial(_moe_dispatch, top_k=top_k, capacity_factor=capacity_factor),
+        functools.partial(_moe_dispatch, top_k=top_k, capacity_factor=capacity_factor,
+                          score=score),
         (p["router"], x), dispatch_layout)
     buf = _moe_constrain("buf", buf)                      # [B(data), E, C, D]
 
@@ -726,20 +867,22 @@ def _moe_three_regions(p, x: torch.Tensor, *, top_k: int, capacity_factor: float
 
 
 def _moe_dispatch(router, x: torch.Tensor, *, top_k: int, capacity_factor: float,
-                  shares: int = 1):
+                  shares: int = 1, score: str = "softmax", held: tuple | None = None):
     """Routing and dispatch of :func:`moe` → ``(buf [B, E, C, D], expert_of,
     pos_safe, gates, keep [B, S·k], me [E], ce [E])``: the buffer of every
     expert, each assignment's expert, slot (``C`` where dropped), gate and
-    whether it is kept, and the mean router probability and routed
-    fraction of each expert over the rows (this rank's share of them)."""
+    whether it is kept, and the mean router score and routed fraction of
+    each expert over the rows (this rank's share of them).  With ``held =
+    (e0, El)`` the buffer holds only experts ``[e0, e0 + El)`` (``[B, El, C,
+    D]``), and every other expert's assignments take slot ``C``."""
     b, s, d = x.shape
     e = router.shape[1]
-    probs = torch.softmax((x @ router).float(), dim=-1)                    # [B,S,E]
+    probs = ROUTER_SCORES[score]((x @ router).float())                    # [B,S,E]
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = gate_vals[..., :top_k], gate_idx[..., :top_k]    # [B,S,K]
     gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
 
-    cap = moe_capacity(s, top_k, e, capacity_factor)
+    e0, el = held if held is not None else (0, e)
     t = s * top_k                                          # assignments per row
     expert_of = gate_idx.reshape(b, t)                     # [B,T]
     token_of = torch.arange(s, device=x.device).repeat_interleave(top_k)[None].expand(b, t)
@@ -748,14 +891,20 @@ def _moe_dispatch(router, x: torch.Tensor, *, top_k: int, capacity_factor: float
     # position of each assignment within its expert's queue
     assign = F.one_hot(expert_of, e)                                   # [B,T,E]
     pos = (assign.cumsum(dim=1) - assign).gather(-1, expert_of[..., None])[..., 0]
+    if capacity_factor > 0:
+        cap = moe_capacity(s, top_k, e, capacity_factor)
+    else:   # dropless: a decode step's token takes an expert at most once
+        cap = 1 if s == 1 else max(1, int(assign[..., e0:e0 + el].sum(dim=1).max()))
     keep = pos < cap
-    pos_safe = torch.where(keep, pos, cap)                 # slot cap = dropped
+    slot = keep if held is None else keep & (expert_of >= e0) & (expert_of < e0 + el)
+    pos_safe = torch.where(slot, pos, cap)                 # slot cap = dropped
 
     # one scatter with no mask (a boolean index would wait on the host):
     # dropped assignments land in an extra slot that is sliced away
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, t)
-    buf = x.new_zeros((b, e, cap + 1, d))
-    buf.index_put_((bidx, expert_of, pos_safe), x[bidx, token_of])
+    buf = x.new_zeros((b, el, cap + 1, d))
+    local = expert_of if held is None else (expert_of - e0).clamp(0, el - 1)
+    buf.index_put_((bidx, local, pos_safe), x[bidx, token_of])
 
     me = probs.mean(dim=(0, 1))                                         # [E]
     ce = F.one_hot(gate_idx, e).sum(dim=2).float().mean(dim=(0, 1))     # routed fraction
@@ -804,19 +953,19 @@ def _moe_combine(out, expert_of, pos_safe, gates, keep, *, top_k: int, e0: int |
 
 
 def _moe_routed(router, w_gate, w_up, w_down, x: torch.Tensor, *, top_k: int,
-                capacity_factor: float, e0: int = 0, shares: int = 1,
+                capacity_factor: float, score: str = "softmax", e0: int = 0, shares: int = 1,
                 fsdp: tuple | None = None):
     """The routed experts of :func:`moe` over the experts ``[e0, e0 + El)``
     that ``w_gate/w_up/w_down [El, ...]`` hold (all of them by default) →
     ``(y [B, S, D], me [E], ce [E])``: ``y`` those experts' share of the
-    output, ``me`` and ``ce`` the mean router probability and the routed
+    output, ``me`` and ``ce`` the mean router score and the routed
     fraction of each expert over the rows."""
     e, el = router.shape[1], w_gate.shape[0]
+    held = (e0, el) if el < e else None                    # this rank's experts
     buf, expert_of, pos_safe, gates, keep, me, ce = _moe_dispatch(
-        router, x, top_k=top_k, capacity_factor=capacity_factor, shares=shares)
-    if el < e:                                             # this rank's experts
-        buf = buf[:, e0:e0 + el]
+        router, x, top_k=top_k, capacity_factor=capacity_factor, shares=shares, score=score,
+        held=held)
     out = _moe_experts(buf, w_gate, w_up, w_down, fsdp=fsdp)
     y = _moe_combine(out, expert_of, pos_safe, gates, keep, top_k=top_k,
-                     e0=e0 if el < e else None)
+                     e0=e0 if held is not None else None)
     return y, me, ce

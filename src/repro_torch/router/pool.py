@@ -48,6 +48,9 @@ class Replica:
     """
 
     def __init__(self, name: str, session):
+        if getattr(getattr(session, "engine", None), "kv_planes", 2) == 1:
+            raise ValueError("the router routes by the replicas' prefix caches, which "
+                             "latent attention (MLA) cannot use")
         self.name = str(name)
         self.session = session
         self.state = LIVE

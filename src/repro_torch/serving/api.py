@@ -171,6 +171,9 @@ class ServeSession:
             raise ValueError(
                 "ServeSession requires attention-only models: recurrent "
                 "state layers have no per-row admission/retirement")
+        if prefix_cache is not None and getattr(model, "kv_planes", 2) == 1:
+            raise ValueError("the prefix cache keeps K/V pairs; latent attention (MLA) "
+                             "has none to restore or publish")
         self.engine = KVSwapEngine(model, params, engine_cfg, batch=slots,
                                    calib_k=calib_k, adapter=adapter, obs=obs,
                                    faults=faults, device=device)

@@ -114,6 +114,9 @@ def init_cache(cfg, batch: int, max_len: int, *, dtype=torch.float32,
     ``main_len`` with the rolling buffer) as host ints.  The xLSTM
     stabilisers start at -1e30, as the reference's cache has them (its
     ``*_init_state`` functions use -inf)."""
+    if getattr(cfg, "latent", False):
+        raise ValueError("latent attention (MLA) is served by KVSwapEngine only: this "
+                         "full-cache path and its sequence-sharded attention keep K/V pairs")
     dev = resolve(device)
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     layers = []

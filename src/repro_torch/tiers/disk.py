@@ -155,7 +155,7 @@ class DiskTier(KVTier):
         if int(gid) != int(self.store.n_groups[layer, row]):
             return False
         kv = np.asarray(kv)
-        self.store.append_group_row(layer, row, kv[:, 0], kv[:, 1])
+        self.store.append_group_row(layer, row, kv[:, 0], kv[:, -1])
         return True
 
     def invalidate(self, layer: int, row: int, gid: int) -> None:
