@@ -136,53 +136,117 @@ class KVCacheManager:
         into a slab with the indices that place it on the device
         (``table.upload``, delivered by :meth:`sync_device`).
 
+        Where the chain is the disk tier alone over a plain store, the
+        misses take the batched path (:meth:`_load_batched`): the same
+        charges, placements and bytes, from one gather of the layer's
+        groups instead of a read, a charge and an insert a group.
+
         ``group_ids, group_mask``: ``[B, M]``.
         """
-        b, m = group_ids.shape
         group_mask = np.asarray(group_mask, bool)
-        slots = np.full((b, m), -1, dtype=np.int64)
         ids_out = np.where(group_mask, group_ids, -1)
+        batched = self._batched()
         staged: dict = {}
         mirror: list = []   # (bi, slot, kv) the reuse buffer took
-        for bi in range(b):
-            want = [int(g) for g, ok in zip(group_ids[bi], group_mask[bi]) if ok]
+        loads: list = []    # batched: (bi, missed ids ascending, their slots or -1)
+        for bi in range(group_ids.shape[0]):
             # de-dup, preserving order (top-k can repeat id 0 on masked rows)
-            want = list(dict.fromkeys(want))
+            want = list(dict.fromkeys(group_ids[bi][group_mask[bi]].tolist()))
             want_set = set(want)
             _, misses = self.reuse.lookup(bi, want)
-            for tier in self.chain:
-                if not misses:
-                    break
-                served, misses = tier.serve_run(self.layer, bi, misses,
-                                                self.store.dtype)
-                for gid, kv in served:
-                    # current working set is pinned; overflow stays staged
-                    slot = self.reuse.insert(bi, gid, kv, protected=want_set)
-                    if slot is None:
-                        staged[(bi, gid)] = kv
-                    else:
-                        mirror.append((bi, slot, kv))
-            if misses:
-                raise FetchFailed(
-                    f"layer {self.layer} row {bi} groups {misses} not "
-                    f"resolved by any tier in the chain "
-                    f"({[t.name for t in self.chain]})",
-                    layer=self.layer, row=bi, start=int(misses[0]),
-                    count=len(misses))
-            # residency is settled: each selected group's slot, -2 if staged
-            held = group_ids[bi][:, None] == self.reuse.slot_table[bi][None, :]
-            slot = np.where(held.any(axis=1), held.argmax(axis=1), -2)
-            slots[bi] = np.where(group_mask[bi], slot, -1)
+            if batched:
+                if misses:
+                    gids = np.sort(np.array(misses, np.int64))
+                    loads.append((bi, gids, self.reuse.place(bi, gids, want_set)))
+            else:
+                self._walk_chain(bi, misses, want_set, staged, mirror)
+        # residency is settled: each selected group's slot, -2 if staged
+        held = group_ids[:, :, None] == self.reuse.slot_table[:, None, :]
+        slots = np.where(group_mask, np.where(held.any(axis=2), held.argmax(axis=2), -2), -1)
         table = MappingTable(
             group_ids=ids_out, slots=slots, group_mask=group_mask,
             rolling_fill=self.rolling.fills.copy(), staged=staged,
         )
-        if self.slabs is not None:
+        if batched:
+            self._load_batched(table, loads)
+        elif self.slabs is not None:
             rows, pos, tok_rows, toks = staged_tokens(slots, self.reuse.group_size)
             table.upload = self.slabs.fill(
                 mirror, [staged[(r, g)] for r, g in zip(rows.tolist(), ids_out[rows, pos].tolist())],
                 slots, table.rolling_fill, tok_rows, toks)
         return table
+
+    def _batched(self) -> bool:
+        """Whether this fetch's misses may be read in one gather: the chain
+        is the disk tier alone (a warm tier serves group by group in its LRU
+        order), over a plain :class:`KVDiskStore` whose reads nothing
+        watches.  A ``FaultyDisk`` forwards the store's attributes, so it is
+        told apart by type; each of its runs must stay separately faultable.
+        A read replaced on the store or the tier keeps the walk too."""
+        return (len(self.chain) == 1 and type(self.store) is KVDiskStore
+                and "read_run" not in vars(self.store) and "serve_run" not in vars(self.disk))
+
+    def _walk_chain(self, bi: int, misses: list, want_set: set, staged: dict,
+                    mirror: list) -> None:
+        """One row's misses through the tier chain, group by group."""
+        for tier in self.chain:
+            if not misses:
+                break
+            served, misses = tier.serve_run(self.layer, bi, misses, self.store.dtype)
+            for gid, kv in served:
+                # current working set is pinned; overflow stays staged
+                slot = self.reuse.insert(bi, gid, kv, protected=want_set)
+                if slot is None:
+                    staged[(bi, gid)] = kv
+                else:
+                    mirror.append((bi, slot, kv))
+        if misses:
+            raise FetchFailed(
+                f"layer {self.layer} row {bi} groups {misses} not "
+                f"resolved by any tier in the chain "
+                f"({[t.name for t in self.chain]})",
+                layer=self.layer, row=bi, start=int(misses[0]),
+                count=len(misses))
+
+    def _load_batched(self, table: MappingTable, loads: list) -> None:
+        """Read every row's misses, already placed by ``ReuseBuffer.place``,
+        with one gather from the store: into the slab's payload (the mirror's
+        groups, then each staged position's) or, on the host-gather path,
+        into one buffer.  The reuse slots take their groups by one indexed
+        assignment; ``table.staged`` holds views of the gathered bytes, keyed
+        as the walk keys them (row, then ascending id)."""
+        if loads:
+            rows = np.concatenate([np.full(gids.size, bi) for bi, gids, _ in loads])
+            gids = np.concatenate([gids for _, gids, _ in loads])
+            placed = np.concatenate([at for _, _, at in loads])
+            self.disk.charge_rows(rows, gids)
+        else:
+            rows = gids = placed = np.zeros(0, np.int64)
+        kept = placed >= 0
+        m_rows, m_slots = rows[kept], placed[kept]
+        s_keys = list(zip(rows[~kept].tolist(), gids[~kept].tolist()))
+        n_m = m_rows.size
+        if self.slabs is None:
+            out = np.empty((gids.size,) + self.reuse.slots.shape[2:], self.reuse.slots.dtype)
+            order = np.concatenate((np.flatnonzero(kept), np.flatnonzero(~kept)))
+            self.store.gather_groups(self.layer, rows[order], gids[order], out)
+            self.reuse.slots[m_rows, m_slots] = out[:n_m]
+            table.staged = dict(zip(s_keys, out[n_m:]))
+            return
+        s_rows, s_pos, tok_rows, toks = staged_tokens(table.slots, self.reuse.group_size)
+        s_gids = table.group_ids[s_rows, s_pos]
+
+        def write(out: np.ndarray) -> None:
+            self.store.gather_groups(self.layer, np.concatenate((m_rows, s_rows)),
+                                     np.concatenate((gids[kept], s_gids)), out)
+            self.reuse.slots[m_rows, m_slots] = out[:n_m]
+            # keyed in the walk's order; a group staged at two positions
+            # takes the view of either (the same bytes)
+            table.staged = dict.fromkeys(s_keys)
+            table.staged.update(zip(zip(s_rows.tolist(), s_gids.tolist()), out[n_m:]))
+
+        table.upload = self.slabs.fill_with(write, n_m, s_rows.size, m_rows, m_slots,
+                                            table.slots, table.rolling_fill, tok_rows, toks)
 
     def gather(self, table: MappingTable) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Materialize the logical KV view.

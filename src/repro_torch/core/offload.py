@@ -29,6 +29,7 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.io.scheduler import ReadScheduler
+from repro_torch.obs.metrics import fold
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +229,30 @@ class IOAccountant:
             tr.read_requests += n_requests
             tr.read_seconds += t
         return t
+
+    def charge_reads(self, sizes: np.ndarray) -> None:
+        """:meth:`charge_read` of each of ``sizes`` (bytes, one request
+        each) in turn, under one hold of the lock: every total, bound
+        counter and open :meth:`track` scope ends as the calls one by one
+        leave it, bit for bit (each request's seconds are added in order)."""
+        if not sizes.size:
+            return
+        sizes_of, at = np.unique(sizes, return_inverse=True)
+        secs = np.array([self.spec.read_time(int(n), 1) for n in sizes_of])[at]
+        n_bytes, n_requests = int(sizes.sum()), int(sizes.size)
+        with self._lock:
+            self.read_bytes += n_bytes
+            self.read_requests += n_requests
+            self.read_seconds = fold(self.read_seconds, secs)
+            m = self._metrics
+            if m is not None:
+                m["read_bytes"].inc(n_bytes)
+                m["read_requests"].inc(n_requests)
+                m["read_seconds"].inc_each(secs)
+        for tr in self._trackers():
+            tr.read_bytes += n_bytes
+            tr.read_requests += n_requests
+            tr.read_seconds = fold(tr.read_seconds, secs)
 
     def charge_write(self, n_bytes: int, n_requests: int = 1) -> float:
         t = self.spec.write_time(n_bytes, n_requests)
@@ -556,6 +581,21 @@ class KVDiskStore:
         if self.quant_bits == 8:
             blk = self._dequant(blk, self._scales[layer, batch_idx, start:start + count])
         return KVRun(blk)
+
+    def gather_groups(self, layer: int, rows: np.ndarray, gids: np.ndarray,
+                      out: np.ndarray) -> None:
+        """Copy group ``gids[i]`` of row ``rows[i]`` into ``out[i]``
+        (``[n, G, P, H_kv, d]``), as :meth:`peek_run` reads it and without
+        its charge: one gather over the layer's ``[B·max_groups, …]`` view,
+        dequantised from an int8 store.  The caller charges the reads."""
+        if gids.size and (gids.min() < 0 or gids.max() >= self.max_groups):
+            raise IndexError(f"group ids outside [0, {self.max_groups})")
+        src = self._mm[layer].reshape((-1,) + self._mm.shape[3:])
+        at = rows * self.max_groups + gids
+        if self.quant_bits == 8:
+            out[...] = self._dequant(src.take(at, axis=0), self._scales[layer].reshape(-1)[at])
+        else:
+            src.take(at, axis=0, out=out, mode="clip")   # checked above; "raise" buffers
 
     def read_groups(self, layer: int, batch_idx: int, group_ids: Sequence[int],
                     scheduler: ReadScheduler | None = None) -> tuple[np.ndarray, np.ndarray]:

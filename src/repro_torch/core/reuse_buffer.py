@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -187,6 +188,40 @@ class ReuseBuffer:
         self.slot_table[batch_idx, slot] = group_id
         self.slots[batch_idx, slot] = kv_group
         return slot
+
+    def place(self, batch_idx: int, group_ids: np.ndarray, protected: set) -> np.ndarray:
+        """The slots :meth:`insert` called on each of ``group_ids`` in turn
+        would give them (``-1``: staged), without writing their data.
+
+        ``group_ids`` are distinct, none resident, all in ``protected`` (the
+        step's pinned working set).  The free slots go first, in the order
+        ``insert`` pops them; then the unprotected residents are evicted in
+        FIFO order, ``victim_sink`` called for each while its slot's bytes
+        are intact; the rest find no slot.  The caller writes each placed
+        group into ``slots[batch_idx, slot]``."""
+        idx, fifo, free = self._index[batch_idx], self._fifo[batch_idx], self._free[batch_idx]
+        n = len(group_ids)
+        k = min(n, len(free))
+        got = free[len(free) - k:][::-1]
+        del free[len(free) - k:]
+        victims = list(itertools.islice((g for g in fifo if g not in protected), n - k))
+        if victims:
+            gone = set(victims)
+            left = [g for g in fifo if g not in gone]
+            fifo.clear()
+            fifo.extend(left)
+            for victim in victims:
+                slot = idx.pop(victim)
+                got.append(slot)
+                if self.victim_sink is not None:
+                    self.victim_sink(batch_idx, victim, self.slots[batch_idx, slot])
+        new = group_ids[:len(got)].tolist()
+        idx.update(zip(new, got))
+        fifo.extend(new)
+        self.slot_table[batch_idx, got] = new
+        out = np.full(n, -1, np.int64)
+        out[:len(got)] = got
+        return out
 
     def clear_row(self, batch_idx: int) -> None:
         """Retire a batch row: drop every resident group so the next tenant

@@ -156,25 +156,35 @@ class SlabRing:
         for the groups the reuse buffer took, ``staged`` as the ``kv`` of
         each staged position in :func:`staged_tokens`' order, then the index
         block.  Each payload is copied once."""
+        kvs = [kv for _, _, kv in mirror] + staged
+        n_m = len(mirror)
+        return self.fill_with(lambda out: np.stack(kvs, out=out), n_m, len(staged),
+                              np.fromiter((r for r, _, _ in mirror), np.int64, n_m),
+                              np.fromiter((s for _, s, _ in mirror), np.int64, n_m),
+                              slots, fills, staged_tok_rows, staged_toks)
+
+    def fill_with(self, write, n_mirror: int, n_staged: int, mirror_rows: np.ndarray,
+                  mirror_slots: np.ndarray, slots: np.ndarray, fills: np.ndarray,
+                  staged_tok_rows: np.ndarray, staged_toks: np.ndarray) -> SlabUpload:
+        """:meth:`fill` with the payload written by ``write(out)``: ``out``
+        is the slab's ``[n_mirror + n_staged, G, P, H_kv, d]`` payload, the
+        groups for the reuse mirror's ``(mirror_rows, mirror_slots)`` first,
+        then each staged position's in :func:`staged_tokens`' order."""
         slab = self.acquire()
         try:
-            n_m, n_s = len(mirror), len(staged)
-            n = n_m + n_s
+            n = n_mirror + n_staged
             pay = n * self.group_nbytes
             if n:
-                out = slab.u8[:pay].view(self.dtype).reshape(n, *self.group_shape)
-                np.stack([kv for _, _, kv in mirror] + staged, out=out)
+                write(slab.u8[:pay].view(self.dtype).reshape(n, *self.group_shape))
             at = -(-pay // _ALIGN) * _ALIGN
-            parts = [slots.reshape(-1), fills,
-                     np.fromiter((r for r, _, _ in mirror), np.int64, n_m),
-                     np.fromiter((s for _, s, _ in mirror), np.int64, n_m),
+            parts = [slots.reshape(-1), fills, mirror_rows, mirror_slots,
                      staged_tok_rows, staged_toks]
             n_ix = sum(p.size for p in parts)
             np.concatenate(parts, out=slab.u8[at:at + 8 * n_ix].view(np.int64))
         except BaseException:
             self.release(slab)
             raise
-        return SlabUpload(slab, n_m, n_s, at, at + 8 * n_ix)
+        return SlabUpload(slab, n_mirror, n_staged, at, at + 8 * n_ix)
 
     # -- the main thread's side ------------------------------------------
     def deliver(self, up: SlabUpload, mirror, batch: int, n_select: int) -> DeviceUpload:

@@ -25,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterable, Sequence
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class ReadRun:
@@ -91,6 +93,16 @@ class ReadScheduler:
                 run_ids = [g]
         runs.append(ReadRun(run_start, run_ids[-1] - run_start + 1, tuple(run_ids)))
         return runs
+
+    def run_lengths(self, ids: np.ndarray) -> np.ndarray:
+        """The ``count`` of each run :meth:`plan` makes of sorted, distinct
+        ``ids``, in numpy, without a :class:`ReadRun` a run.  A run breaks
+        where the step between neighbouring ids leaves a gap wider than
+        ``max_gap``."""
+        if not ids.size:
+            return ids[:0]
+        cut = np.flatnonzero(np.diff(ids) > self.max_gap + 1) + 1
+        return ids[np.append(cut - 1, ids.size - 1)] - ids[np.insert(cut, 0, 0)] + 1
 
     def stats(self, plan: Sequence[ReadRun]) -> dict:
         """Summary counters for a plan (used by tests and benchmarks)."""

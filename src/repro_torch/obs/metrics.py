@@ -44,6 +44,8 @@ from __future__ import annotations
 import threading
 from typing import Iterable, Mapping
 
+import numpy as np
+
 from repro_torch.utils import stats as stats_util
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
@@ -78,6 +80,15 @@ def render_labels(labels: Mapping[str, str]) -> str:
                           for k, v in sorted(labels.items())) + "}"
 
 
+def fold(total, amounts):
+    """``total`` plus each of ``amounts`` in turn, left to right: the float a
+    loop of ``+=`` gives (``np.add.accumulate`` adds in that order; a sum
+    would pair the terms)."""
+    if not len(amounts):
+        return total
+    return float(np.add.accumulate(np.concatenate(([total], amounts)))[-1])
+
+
 class Counter:
     """Monotonically increasing value (int or float)."""
 
@@ -96,6 +107,14 @@ class Counter:
             raise ValueError(f"counter {self.name} cannot decrease")
         with self._lock:
             self._value += amount
+
+    def inc_each(self, amounts) -> None:
+        """:meth:`inc` by each of ``amounts`` in turn, under one hold of the
+        lock: the value a loop of ``inc`` calls leaves, bit for bit."""
+        if (np.asarray(amounts) < 0).any():
+            raise ValueError(f"counter {self.name} cannot decrease")
+        with self._lock:
+            self._value = fold(self._value, amounts)
 
     @property
     def value(self):
