@@ -27,6 +27,8 @@ from repro_torch.faults.retry import RetryPolicy
 from repro_torch.io.scheduler import ReadRun, ReadScheduler
 from repro_torch.tiers.disk import DiskTier
 
+_EMPTY = np.zeros(0, np.int64)
+
 REGION_REUSE = 0
 REGION_ROLLING = 1
 
@@ -83,10 +85,6 @@ class KVCacheManager:
         self.warm = warm
         if warm is not None:
             reuse.victim_sink = self._demote
-        # the ordered miss-resolution chain (repro.tiers.KVTier): fetch
-        # walks it top to bottom, handing each tier's residue to the next.
-        # The disk tier is always last and always authoritative.
-        self.chain = ([warm] if warm is not None else []) + [self.disk]
         self._obs = obs
         # the device-resident engine's upload slabs (None: host gather)
         self.slabs = slabs
@@ -121,132 +119,117 @@ class KVCacheManager:
         return self.disk.read_run_with_retry(batch_idx, run)
 
     def fetch(self, group_ids: np.ndarray, group_mask: np.ndarray) -> MappingTable:
-        """Resolve selected groups: reuse hits stay put, everything else
-        walks the **ordered tier chain** (``self.chain``).
+        """Resolve selected groups: reuse hits stay put, each row's misses go
+        down the tier chain before the next row's are looked at.
 
-        Miss resolution order is the memory hierarchy: reuse buffer →
-        warm tier (when attached) → disk.  Each tier serves what it holds
-        (``KVTier.serve_run``) and hands the residue to the next; the disk
-        tier plans its residue into sorted, coalesced sequential runs
-        before touching the store (§3.4.4) and is authoritative, so the
-        chain never ends with unresolved groups.  Every group a tier
-        serves is promoted into the reuse buffer exactly like a disk load
-        — including the staged-overflow path.  With upload slabs attached
-        (the device-resident engine), each served group is also copied once
-        into a slab with the indices that place it on the device
-        (``table.upload``, delivered by :meth:`sync_device`).
+        Miss resolution order is the memory hierarchy: reuse buffer → warm
+        tier (when attached) → disk.  The warm tier serves what it holds,
+        group by group (``KVTier.serve_run``); the disk tier takes the
+        residue in ascending order, whose runs the store vets first where a
+        read can fault (:meth:`DiskTier.vet`), and is authoritative.  Every
+        served group is placed by ``ReuseBuffer.place`` in the order it was
+        served: a slot each, or staged where the step's working set pins
+        the buffer full.  Then the disk's runs of every row are charged in
+        one call and their groups read with one gather, straight into an
+        upload slab with the indices that place them on the device
+        (``table.upload``, delivered by :meth:`sync_device`), or into one
+        host buffer.
 
-        Where the chain is the disk tier alone over a plain store, the
-        misses take the batched path (:meth:`_load_batched`): the same
-        charges, placements and bytes, from one gather of the layer's
-        groups instead of a read, a charge and an insert a group.
+        A run that stays unreadable raises :class:`FetchFailed` once the
+        groups already placed are written: the earlier rows', and this
+        row's from the warm tier.
 
         ``group_ids, group_mask``: ``[B, M]``.
         """
         group_mask = np.asarray(group_mask, bool)
-        ids_out = np.where(group_mask, group_ids, -1)
-        batched = self._batched()
-        staged: dict = {}
-        mirror: list = []   # (bi, slot, kv) the reuse buffer took
-        loads: list = []    # batched: (bi, missed ids ascending, their slots or -1)
-        for bi in range(group_ids.shape[0]):
-            # de-dup, preserving order (top-k can repeat id 0 on masked rows)
-            want = list(dict.fromkeys(group_ids[bi][group_mask[bi]].tolist()))
-            want_set = set(want)
-            _, misses = self.reuse.lookup(bi, want)
-            if batched:
+        warm_loads: list = []   # (row, ids, their slots or -1, the warm tier's kv each)
+        disk_loads: list = []   # (row, ids ascending, their slots or -1, None)
+        try:
+            for bi in range(group_ids.shape[0]):
+                # de-dup, preserving order (top-k can repeat id 0 on masked rows)
+                want = list(dict.fromkeys(group_ids[bi][group_mask[bi]].tolist()))
+                want_set = set(want)
+                _, misses = self.reuse.lookup(bi, want)
+                if misses and self.warm is not None:
+                    served, misses = self.warm.serve_run(self.layer, bi, misses, self.store.dtype)
+                    if served:
+                        gids = np.array([gid for gid, _ in served], np.int64)
+                        warm_loads.append((bi, gids, self.reuse.place(bi, gids, want_set),
+                                           [kv for _, kv in served]))
                 if misses:
                     gids = np.sort(np.array(misses, np.int64))
-                    loads.append((bi, gids, self.reuse.place(bi, gids, want_set)))
-            else:
-                self._walk_chain(bi, misses, want_set, staged, mirror)
+                    self.disk.vet(bi, gids)
+                    disk_loads.append((bi, gids, self.reuse.place(bi, gids, want_set), None))
+        except FetchFailed:
+            self._load(warm_loads + disk_loads, None)
+            raise
         # residency is settled: each selected group's slot, -2 if staged
         held = group_ids[:, :, None] == self.reuse.slot_table[:, None, :]
         slots = np.where(group_mask, np.where(held.any(axis=2), held.argmax(axis=2), -2), -1)
-        table = MappingTable(
-            group_ids=ids_out, slots=slots, group_mask=group_mask,
-            rolling_fill=self.rolling.fills.copy(), staged=staged,
-        )
-        if batched:
-            self._load_batched(table, loads)
-        elif self.slabs is not None:
-            rows, pos, tok_rows, toks = staged_tokens(slots, self.reuse.group_size)
-            table.upload = self.slabs.fill(
-                mirror, [staged[(r, g)] for r, g in zip(rows.tolist(), ids_out[rows, pos].tolist())],
-                slots, table.rolling_fill, tok_rows, toks)
+        table = MappingTable(group_ids=np.where(group_mask, group_ids, -1), slots=slots,
+                             group_mask=group_mask, rolling_fill=self.rolling.fills.copy())
+        self._load(warm_loads + disk_loads, table)
         return table
 
-    def _batched(self) -> bool:
-        """Whether this fetch's misses may be read in one gather: the chain
-        is the disk tier alone (a warm tier serves group by group in its LRU
-        order), over a plain :class:`KVDiskStore` whose reads nothing
-        watches.  A ``FaultyDisk`` forwards the store's attributes, so it is
-        told apart by type; each of its runs must stay separately faultable.
-        A read replaced on the store or the tier keeps the walk too."""
-        return (len(self.chain) == 1 and type(self.store) is KVDiskStore
-                and "read_run" not in vars(self.store) and "serve_run" not in vars(self.disk))
+    def _load(self, loads: list, table: MappingTable | None) -> None:
+        """Charge the disk's runs of ``loads`` and write their groups: the
+        reuse buffer's by one indexed assignment, the staged ones into
+        ``table.staged`` as views of the bytes read, keyed in the order they
+        were served.  ``loads``: the warm tier's, then the disk's, rows
+        ascending in each.  ``table`` None (a failed fetch): the reuse
+        buffer's alone.
 
-    def _walk_chain(self, bi: int, misses: list, want_set: set, staged: dict,
-                    mirror: list) -> None:
-        """One row's misses through the tier chain, group by group."""
-        for tier in self.chain:
-            if not misses:
-                break
-            served, misses = tier.serve_run(self.layer, bi, misses, self.store.dtype)
-            for gid, kv in served:
-                # current working set is pinned; overflow stays staged
-                slot = self.reuse.insert(bi, gid, kv, protected=want_set)
-                if slot is None:
-                    staged[(bi, gid)] = kv
-                else:
-                    mirror.append((bi, slot, kv))
-        if misses:
-            raise FetchFailed(
-                f"layer {self.layer} row {bi} groups {misses} not "
-                f"resolved by any tier in the chain "
-                f"({[t.name for t in self.chain]})",
-                layer=self.layer, row=bi, start=int(misses[0]),
-                count=len(misses))
-
-    def _load_batched(self, table: MappingTable, loads: list) -> None:
-        """Read every row's misses, already placed by ``ReuseBuffer.place``,
-        with one gather from the store: into the slab's payload (the mirror's
-        groups, then each staged position's) or, on the host-gather path,
-        into one buffer.  The reuse slots take their groups by one indexed
-        assignment; ``table.staged`` holds views of the gathered bytes, keyed
-        as the walk keys them (row, then ascending id)."""
-        if loads:
-            rows = np.concatenate([np.full(gids.size, bi) for bi, gids, _ in loads])
-            gids = np.concatenate([gids for _, gids, _ in loads])
-            placed = np.concatenate([at for _, _, at in loads])
-            self.disk.charge_rows(rows, gids)
-        else:
-            rows = gids = placed = np.zeros(0, np.int64)
+        The destinations are the reuse buffer's groups, the warm tier's
+        first, then the staged groups (on the device path, one a staged
+        position of the table), the disk's first: one gather from the store
+        fills the disk's block between the warm tier's groups."""
+        warm = {(bi, gid): kv for bi, g, _, kvs in loads if kvs is not None
+                for gid, kv in zip(g.tolist(), kvs)}
+        rows = np.repeat(np.array([bi for bi, _, _, _ in loads], np.int64),
+                         [g.size for _, g, _, _ in loads])
+        gids = np.concatenate([g for _, g, _, _ in loads] + [_EMPTY])
+        placed = np.concatenate([at for _, _, at, _ in loads] + [_EMPTY])
+        self.disk.charge_rows(rows[len(warm):], gids[len(warm):])
         kept = placed >= 0
         m_rows, m_slots = rows[kept], placed[kept]
-        s_keys = list(zip(rows[~kept].tolist(), gids[~kept].tolist()))
-        n_m = m_rows.size
-        if self.slabs is None:
-            out = np.empty((gids.size,) + self.reuse.slots.shape[2:], self.reuse.slots.dtype)
-            order = np.concatenate((np.flatnonzero(kept), np.flatnonzero(~kept)))
-            self.store.gather_groups(self.layer, rows[order], gids[order], out)
-            self.reuse.slots[m_rows, m_slots] = out[:n_m]
-            table.staged = dict(zip(s_keys, out[n_m:]))
-            return
-        s_rows, s_pos, tok_rows, toks = staged_tokens(table.slots, self.reuse.group_size)
-        s_gids = table.group_ids[s_rows, s_pos]
+        n_m, lo = m_rows.size, int(np.count_nonzero(kept[:len(warm)])) if warm else 0
+        staged = np.flatnonzero(~kept)
+        if warm:   # keyed in the order served: row by row, the warm tier's first
+            staged = staged[np.argsort(rows[staged], kind="stable")]
+        keys = list(zip(rows[staged].tolist(), gids[staged].tolist()))
+        s_rows = s_gids = tok_rows = toks = _EMPTY
+        if table is not None and self.slabs is None:
+            s_rows, s_gids = rows[staged], gids[staged]
+        elif table is not None:
+            s_rows, s_pos, tok_rows, toks = staged_tokens(table.slots, self.reuse.group_size)
+            s_gids = table.group_ids[s_rows, s_pos]
+        n_ws = 0
+        if warm and s_rows.size:   # the warm tier's staged groups last
+            s_warm = np.array([key in warm for key in zip(s_rows.tolist(), s_gids.tolist())])
+            order = np.argsort(s_warm, kind="stable")
+            s_rows, s_gids, n_ws = s_rows[order], s_gids[order], int(np.count_nonzero(s_warm))
+            if tok_rows.size:
+                g = self.reuse.group_size
+                tok_rows, toks = (t.reshape(-1, g)[order].reshape(-1) for t in (tok_rows, toks))
+        to_rows, to_gids = np.concatenate((m_rows, s_rows)), np.concatenate((gids[kept], s_gids))
+        hi = to_rows.size - n_ws
 
         def write(out: np.ndarray) -> None:
-            self.store.gather_groups(self.layer, np.concatenate((m_rows, s_rows)),
-                                     np.concatenate((gids[kept], s_gids)), out)
+            if hi > lo:
+                self.store.gather_groups(self.layer, to_rows[lo:hi], to_gids[lo:hi], out[lo:hi])
+            for i in [*range(lo), *range(hi, to_rows.size)]:
+                out[i] = warm[(int(to_rows[i]), int(to_gids[i]))]
             self.reuse.slots[m_rows, m_slots] = out[:n_m]
-            # keyed in the walk's order; a group staged at two positions
-            # takes the view of either (the same bytes)
-            table.staged = dict.fromkeys(s_keys)
-            table.staged.update(zip(zip(s_rows.tolist(), s_gids.tolist()), out[n_m:]))
+            if table is not None:
+                # a group staged at two positions takes the view of either (the same bytes)
+                table.staged = dict.fromkeys(keys)
+                table.staged.update(zip(zip(s_rows.tolist(), s_gids.tolist()), out[n_m:]))
 
-        table.upload = self.slabs.fill_with(write, n_m, s_rows.size, m_rows, m_slots,
-                                            table.slots, table.rolling_fill, tok_rows, toks)
+        if table is None or self.slabs is None:
+            write(np.empty((to_rows.size,) + self.reuse.slots.shape[2:], self.reuse.slots.dtype))
+        else:
+            table.upload = self.slabs.fill(write, n_m, s_rows.size, m_rows, m_slots,
+                                           table.slots, table.rolling_fill, tok_rows, toks)
 
     def gather(self, table: MappingTable) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Materialize the logical KV view.

@@ -24,7 +24,6 @@ import math
 import os
 import tempfile
 import threading
-from typing import Sequence
 
 import numpy as np
 
@@ -79,10 +78,6 @@ NVME = DiskSpec("nvme", peak_bw=1.8e9, page_bytes=4096, request_latency=3.5e-6)
 UFS = DiskSpec("ufs", peak_bw=1.0e9, page_bytes=4096, request_latency=8e-6)
 EMMC = DiskSpec("emmc", peak_bw=250e6, page_bytes=4096, request_latency=20e-6)
 DISKS = {"nvme": NVME, "ufs": UFS, "emmc": EMMC}
-
-# default plan: merge strictly adjacent ids only (no gap waste)
-_ADJACENT = ReadScheduler(max_gap=0)
-
 
 # -- int8 group quantization (§7 "low-bit KV"), shared by KVDiskStore and
 # -- the prefix-cache slab (repro.cache.store) -------------------------------
@@ -597,38 +592,19 @@ class KVDiskStore:
         else:
             src.take(at, axis=0, out=out, mode="clip")   # checked above; "raise" buffers
 
-    def read_groups(self, layer: int, batch_idx: int, group_ids: Sequence[int],
-                    scheduler: ReadScheduler | None = None) -> tuple[np.ndarray, np.ndarray]:
-        """Read selected groups for one sequence.
+    def vet_runs(self, layer: int, batch_idx: int, gids: np.ndarray,
+                 scheduler: ReadScheduler, read) -> None:
+        """Clear row ``batch_idx``'s planned runs of ``gids`` for a fetch
+        that gathers them (``DiskTier.vet``), ``read(batch_idx, run)``
+        being the disk tier's retrying read of one run.  A plain store's
+        extents always read: nothing to do, and the runs are charged with
+        the fetch's others (:meth:`charge_runs`)."""
 
-        Plans the access with a :class:`~repro.io.scheduler.ReadScheduler`
-        (default: merge strictly adjacent ids — §3.4.4) and executes one
-        :meth:`read_run` per coalesced run.  Returns ``(k, v)`` each
-        ``[n_sel, G, H_kv, d]`` in sorted, de-duplicated group-id order.
-        """
-        plan = (scheduler or _ADJACENT).plan(group_ids)
-        if not plan:
-            empty = np.empty((0, self.group_size, self.n_kv_heads, self.head_dim), self.dtype)
-            return empty, empty.copy()
-        ks, vs = [], []
-        for run in plan:
-            k_r, v_r = self.read_run(layer, batch_idx, run.start, run.count)
-            for gid in run.ids:
-                ks.append(k_r[gid - run.start])
-                vs.append(v_r[gid - run.start])
-        return np.stack(ks), np.stack(vs)
-
-    def read_all(self, layer: int) -> tuple[np.ndarray, np.ndarray]:
-        """FlexGen-style full-layer restore: one big sequential read per row."""
-        ng = int(self.n_groups[layer].min())
-        blk = np.asarray(self._mm[layer, :, :ng])  # [B, ng, G, 2, Hkv, d]
-        if self.quant_bits == 8:
-            blk = self._dequant(blk, self._scales[layer, :, :ng])
+    def charge_runs(self, counts: np.ndarray) -> None:
+        """Charge one read request a run of ``counts[i]`` groups, in order,
+        for the groups :meth:`gather_groups` copies."""
         if self.accountant is not None:
-            self.accountant.charge_read(self.batch * ng * self.group_nbytes, self.batch)
-        k = blk[:, :, :, 0].reshape(self.batch, ng * self.group_size, self.n_kv_heads, self.head_dim)
-        v = blk[:, :, :, -1].reshape(self.batch, ng * self.group_size, self.n_kv_heads, self.head_dim)
-        return k, v
+            self.accountant.charge_reads(counts * self.group_nbytes)
 
     # -- lifecycle --------------------------------------------------------
     def close(self) -> None:

@@ -6,8 +6,10 @@ re-reads.  Implementation matches the paper: a fixed set of slots each holding
 one group, a slot table mapping slot → group id, FIFO replacement.
 
 Slots are keyed per (layer, batch row); capacity ``C`` counts groups.  The
-host :class:`ReuseBuffer` is the reference's, copied; the device mirror is
-the port's own (:class:`DeviceReuseMirror`).
+host :class:`ReuseBuffer` keeps the reference's policy and state, and places
+a row's loaded groups in one call (:meth:`ReuseBuffer.place`, the reference's
+``insert`` loop); the device mirror is the port's own
+(:class:`DeviceReuseMirror`).
 """
 
 from __future__ import annotations
@@ -147,58 +149,17 @@ class ReuseBuffer:
         slot = self._index[batch_idx][group_id]
         return self.slots[batch_idx, slot]
 
-    def insert(self, batch_idx: int, group_id: int, kv_group: np.ndarray,
-               protected: set | None = None) -> int | None:
-        """Insert a loaded group (``[G, 2, H_kv, d]``); FIFO-evicts if full.
-
-        ``protected`` pins the current step's working set: those resident
-        groups are never chosen as eviction victims (the preload buffer is
-        merged into the reuse buffer — paper App. A.2).  Returns the slot
-        index, or ``None`` if insertion would require evicting a protected
-        group (caller stages the group transiently instead).
-        """
-        idx = self._index[batch_idx]
-        fifo = self._fifo[batch_idx]
-        if group_id in idx:  # refresh in place (idempotent insert)
-            slot = idx[group_id]
-            self.slots[batch_idx, slot] = kv_group
-            return slot
-        free = self._free[batch_idx]
-        if free:
-            slot = free.pop()
-        else:
-            victim = None
-            if protected:
-                for cand in fifo:
-                    if cand not in protected:
-                        victim = cand
-                        break
-                if victim is None:
-                    return None
-                fifo.remove(victim)
-            else:
-                victim = fifo.popleft()
-            slot = idx.pop(victim)
-            self.slot_table[batch_idx, slot] = -1
-            if self.victim_sink is not None:
-                # demote to the warm tier while the slot bytes are intact
-                self.victim_sink(batch_idx, victim, self.slots[batch_idx, slot])
-        idx[group_id] = slot
-        fifo.append(group_id)
-        self.slot_table[batch_idx, slot] = group_id
-        self.slots[batch_idx, slot] = kv_group
-        return slot
-
     def place(self, batch_idx: int, group_ids: np.ndarray, protected: set) -> np.ndarray:
-        """The slots :meth:`insert` called on each of ``group_ids`` in turn
-        would give them (``-1``: staged), without writing their data.
+        """Give each of ``group_ids``, in turn, a slot (``-1``: none, the
+        group is staged), without writing their data; FIFO replacement.
 
         ``group_ids`` are distinct, none resident, all in ``protected`` (the
-        step's pinned working set).  The free slots go first, in the order
-        ``insert`` pops them; then the unprotected residents are evicted in
-        FIFO order, ``victim_sink`` called for each while its slot's bytes
-        are intact; the rest find no slot.  The caller writes each placed
-        group into ``slots[batch_idx, slot]``."""
+        step's pinned working set, merged into the reuse buffer — paper App.
+        A.2: never a victim).  The free slots go first, popped from the free list's end; then
+        the unprotected residents are evicted in FIFO order, ``victim_sink``
+        called for each while its slot's bytes are intact; the rest find no
+        slot.  The caller writes each placed group into
+        ``slots[batch_idx, slot]``."""
         idx, fifo, free = self._index[batch_idx], self._fifo[batch_idx], self._free[batch_idx]
         n = len(group_ids)
         k = min(n, len(free))

@@ -150,26 +150,15 @@ class SlabRing:
             held = [s for s in self.slabs if all(s is not f for f in self._free)]
             self._free.extend(held)
 
-    def fill(self, mirror: list, staged: list, slots: np.ndarray, fills: np.ndarray,
+    def fill(self, write, n_mirror: int, n_staged: int, mirror_rows: np.ndarray,
+             mirror_slots: np.ndarray, slots: np.ndarray, fills: np.ndarray,
              staged_tok_rows: np.ndarray, staged_toks: np.ndarray) -> SlabUpload:
-        """Write one fetch into a slab: ``mirror`` as ``[(row, slot, kv)]``
-        for the groups the reuse buffer took, ``staged`` as the ``kv`` of
-        each staged position in :func:`staged_tokens`' order, then the index
-        block.  Each payload is copied once."""
-        kvs = [kv for _, _, kv in mirror] + staged
-        n_m = len(mirror)
-        return self.fill_with(lambda out: np.stack(kvs, out=out), n_m, len(staged),
-                              np.fromiter((r for r, _, _ in mirror), np.int64, n_m),
-                              np.fromiter((s for _, s, _ in mirror), np.int64, n_m),
-                              slots, fills, staged_tok_rows, staged_toks)
-
-    def fill_with(self, write, n_mirror: int, n_staged: int, mirror_rows: np.ndarray,
-                  mirror_slots: np.ndarray, slots: np.ndarray, fills: np.ndarray,
-                  staged_tok_rows: np.ndarray, staged_toks: np.ndarray) -> SlabUpload:
-        """:meth:`fill` with the payload written by ``write(out)``: ``out``
-        is the slab's ``[n_mirror + n_staged, G, P, H_kv, d]`` payload, the
-        groups for the reuse mirror's ``(mirror_rows, mirror_slots)`` first,
-        then each staged position's in :func:`staged_tokens`' order."""
+        """Write one fetch into a slab: the payload by ``write(out)``, where
+        ``out`` is the slab's ``[n_mirror + n_staged, G, P, H_kv, d]``
+        payload, the groups for the reuse mirror's ``(mirror_rows,
+        mirror_slots)`` first, then each staged position's, whose tokens are
+        ``(staged_tok_rows, staged_toks)``; then the index block.  Each
+        payload group is written once."""
         slab = self.acquire()
         try:
             n = n_mirror + n_staged

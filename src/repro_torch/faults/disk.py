@@ -10,6 +10,9 @@ the read/write surface the :class:`~repro.faults.plan.FaultPlan` models:
   transient read/torn errors per the armed burst, and flash-GC stalls
   charged to the accountant as modeled stall seconds (so they land in
   the same ``io_seconds`` every report reads) before the real read runs.
+  A fetch vets each row's planned runs through it (``vet_runs``, under
+  the disk tier's retry ladder) before placing the groups, so those reads
+  are charged there and ``charge_runs`` has nothing left to charge.
 * the write surface (``write_prefill``/``write_prefill_row``/
   ``append_group``/``append_group_row``) runs the real write first, then
   lets the plan remap/grow bad extents over what was just written —
@@ -23,12 +26,7 @@ stack is untouched by construction).
 
 from __future__ import annotations
 
-import numpy as np
-
 from repro_torch.faults.plan import FaultPlan
-from repro_torch.io.scheduler import ReadScheduler
-
-_ADJACENT = ReadScheduler(0)
 
 __all__ = ["FaultyDisk"]
 
@@ -65,21 +63,16 @@ class FaultyDisk:
             self.inner.accountant.charge_stall(stall)
         return self.inner.read_run(layer, batch_idx, start, count)
 
-    def read_groups(self, layer: int, batch_idx: int, group_ids,
-                    scheduler=None):
-        # mirror KVDiskStore.read_groups but execute runs through the
-        # wrapper's read_run so every run is a separately-faultable op
-        plan = (scheduler or _ADJACENT).plan(group_ids)
-        if not plan:
-            return self.inner.read_groups(layer, batch_idx, group_ids,
-                                          scheduler)
-        ks, vs = [], []
-        for run in plan:
-            k_r, v_r = self.read_run(layer, batch_idx, run.start, run.count)
-            for gid in run.ids:
-                ks.append(k_r[gid - run.start])
-                vs.append(v_r[gid - run.start])
-        return np.stack(ks), np.stack(vs)
+    def vet_runs(self, layer: int, batch_idx: int, gids, scheduler, read) -> None:
+        """Read each planned run of ``gids`` through ``read`` (the disk
+        tier's retry ladder over :meth:`read_run`) before the fetch places
+        them: faulted, stalled and charged run by run, in the order a read a
+        run charges them.  The bytes the fetch places come from its gather."""
+        for run in scheduler.plan(gids.tolist()):
+            read(batch_idx, run)
+
+    def charge_runs(self, counts) -> None:
+        """Nothing: :meth:`vet_runs` charged each run as it read it."""
 
     # -- faulted write surface --------------------------------------------
     def write_prefill(self, layer: int, k, v):

@@ -66,9 +66,6 @@ class DiskTier(KVTier):
             self._m_plan_wasted = reg.counter(
                 "kvswap_read_plan_groups_wasted_total",
                 "gap groups read through but not requested")
-            self._m_batched = reg.counter(
-                "kvswap_fetch_batched_groups_total",
-                "groups served by the batched fetch (one gather a layer)")
             self._m_retries = reg.counter(
                 "kvswap_io_retries_total",
                 "disk read attempts retried after a transient fault")
@@ -76,26 +73,36 @@ class DiskTier(KVTier):
                 "kvswap_io_fetch_failures_total",
                 "group runs unrecoverable after the retry budget")
 
+    def vet(self, row: int, gids: np.ndarray) -> None:
+        """Let the store fault row ``row``'s planned runs of ``gids``
+        (ascending) before ``KVCacheManager.fetch`` places them, each run
+        through the retry ladder (:meth:`read_run_with_retry`).  Where a run
+        stays unreadable, the row's plan is counted as :meth:`serve_run`
+        counts it before reading, and the :class:`FetchFailed` goes up."""
+        try:
+            self.store.vet_runs(self.layer, row, gids, self.scheduler, self.read_run_with_retry)
+        except FetchFailed:
+            self._count_plan(self.scheduler.run_lengths(gids), gids.size)
+            raise
+
     def charge_rows(self, rows: np.ndarray, gids: np.ndarray) -> None:
-        """Charge the reads :meth:`serve_run` would make of each row's
-        misses, for a fetch that gathers the groups itself
-        (``KVCacheManager.fetch``'s batched path): the same runs, each one
-        request, row after row, and the same plan counters.  ``gids``
-        ascend within each row, rows ascend.  Nothing is read here, so
-        nothing is retried."""
+        """Charge the reads of the groups a fetch gathers from the store,
+        row after row: the runs :meth:`serve_run` would read, each one
+        request, and its plan counters.  ``gids`` ascend within each row,
+        rows ascend.  The store charges the runs (``charge_runs``)."""
         # rows spaced past the largest gap a run may read through: one plan,
         # and no run crosses from one row into the next
         span = self.store.max_groups + self.scheduler.max_gap + 1
         counts = self.scheduler.run_lengths(rows * span + gids)
-        acc = getattr(self.store, "accountant", None)
-        if acc is not None:
-            acc.charge_reads(counts * self.store.group_nbytes)
+        self.store.charge_runs(counts)
+        self._count_plan(counts, gids.size)
+
+    def _count_plan(self, counts: np.ndarray, n_requested: int) -> None:
         if self._obs is not None and self._obs.enabled:
             read = int(counts.sum())
             self._m_plan_requests.inc(counts.size)
             self._m_plan_groups.inc(read)
-            self._m_plan_wasted.inc(read - gids.size)
-            self._m_batched.inc(gids.size)
+            self._m_plan_wasted.inc(read - n_requested)
 
     # -- the retrying read primitive --------------------------------------
     def read_run_with_retry(self, batch_idx: int, run: ReadRun,

@@ -159,13 +159,13 @@ def test_empty_slot_reads_nothing(parts):
                      device="cpu") as srv:
         read_rows = set()
         store = srv.session.engine.store
-        read_run = store.read_run
+        gather = store.gather_groups
 
-        def spy(layer, batch_idx, start, count):
-            read_rows.add(int(batch_idx))
-            return read_run(layer, batch_idx, start, count)
+        def spy(layer, rows, gids, out):
+            read_rows.update(rows.tolist())
+            return gather(layer, rows, gids, out)
 
-        store.read_run = spy
+        store.gather_groups = spy
         srv.submit(prompts(9, (20,))[0], 3)
         srv.flush()
         assert (srv.last_stats["real_requests"], srv.last_stats["padded_requests"]) == (1, 1)

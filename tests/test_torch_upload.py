@@ -130,7 +130,9 @@ def test_staged_indices_equal_the_loop_they_replace():
 
         ring = SlabRing(1, batch=b, n_select=m, group_shape=shape, dtype=np.float32,
                         device="cpu")
-        up = ring.fill([], [staged[(r, int(ids[r, p]))] for r, p in zip(rows, pos)],
+        kvs = [staged[(r, int(ids[r, p]))] for r, p in zip(rows, pos)]
+        none = np.zeros(0, np.int64)
+        up = ring.fill(lambda out: np.stack(kvs, out=out), 0, len(kvs), none, none,
                        slots, np.zeros(b, np.int64), tok_rows, toks)
         mirror = DeviceReuseMirror(np.zeros((b, c) + shape, np.float32), None, "cpu")
         dev = ring.deliver(up, mirror, b, m)
@@ -202,7 +204,7 @@ def test_a_failed_fetch_leaves_the_ring_whole(parts, async_io, monkeypatch):
                       calib_k=calib, device="cpu") as s:
         eng, ring = s.engine, s.engine.slabs
         disk, nxt = eng.managers[1].disk, eng.managers[2]
-        real, real_next = disk.serve_run, nxt.fetch
+        real, real_next = disk.vet, nxt.fetch
         next_filled, failed_once = threading.Event(), threading.Event()
 
         def fetch_next(ids, mask):
@@ -211,16 +213,16 @@ def test_a_failed_fetch_leaves_the_ring_whole(parts, async_io, monkeypatch):
                 next_filled.set()
             return table
 
-        def serve_run(layer, row, gids, dtype):
+        def vet(row, gids):
             if len(eng.step_log) == 3 and not failed_once.is_set():
                 failed_once.set()
                 # async: fail once layer 2's table holds its slab
                 assert not async_io or next_filled.wait(30)
-                raise FetchFailed("injected", layer=layer, row=row, start=int(gids[0]),
+                raise FetchFailed("injected", layer=disk.layer, row=row, start=int(gids[0]),
                                   count=1)
-            return real(layer, row, gids, dtype)
+            return real(row, gids)
 
-        monkeypatch.setattr(disk, "serve_run", serve_run)
+        monkeypatch.setattr(disk, "vet", vet)
         monkeypatch.setattr(nxt, "fetch", fetch_next)
         rids = [s.submit(rng.integers(0, CFG.vocab_size, n), 8) for n in (41, 49)]
         steps_before = None
